@@ -17,7 +17,8 @@ setup(
     long_description=README.read_text() if README.exists() else '',
     long_description_content_type='text/markdown',
     python_requires='>=3.10',
-    packages=find_packages(include=['unet_tpu', 'unet_tpu.*']),
+    packages=find_packages(include=['unet_tpu', 'unet_tpu.*',
+                                    'unet_tpu_torch', 'unet_tpu_torch.*']),
     install_requires=[
         'jax>=0.4.30',
         'flax>=0.8',
