@@ -8,18 +8,29 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (any failure raises and exits non-zero, printing no result):
 
 1. build the hand-written CUDA kernels from ``unet_tpu_torch/csrc`` with
-   nvcc (sm_90a) and print the card's name and power limit;
+   nvcc (sm_90a), one nvcc per source started together, and print the
+   card's name and power limit;
 2. hold each kernel against its plain PyTorch version at the shapes the
-   main path gives it, in float32 and bfloat16;
+   main paths give it: the attention gate in float32 and bfloat16, the
+   warp at 32 x 512^2 on augmentation-drawn, scattered and all-.5-tie
+   coordinates (masks identical, images bit-identical);
 3. AttentionUNet-64 at 512^2, batch 8, bf16, channels_last, random
    weights from a seed and calibrated BatchNorm statistics: the fused
    gate launches 4 kernels per forward, and its logits match the same
    weights with the fused gate off;
-4. the main path: ``create_server`` serving that model (saved as a
-   reference-format .pt) to concurrent HTTP clients, with the kernel
-   launch count read around the run;
-5. times (CUDA events) of each kernel beside its bound and plain version,
-   of the model forward, and of serving.
+4. the serving path: ``create_server`` serving that model (saved as a
+   reference-format .pt) to concurrent HTTP clients, with the gate
+   kernel's launch count read around the run;
+5. the training path: ``unet_tpu_torch.cli.train`` on
+   ``configs/lung_tumor.yaml`` as written (bf16, batch 4 x accumulation
+   8, augmentation on) on 20 synthetic volumes for 2 epochs, from random
+   weights of a seed, with the warp kernel's launch count read around
+   the run (one per super-batch); every loss finite, the weights moved,
+   and the saved ``weights/last/model.pt`` serves a 512^2 slice through
+   ``cli/predict.load_model``; then the same run with augmentation off;
+6. times (CUDA events) of each kernel beside its bound and plain version,
+   of the model forward, of serving, of the augmentation program and of
+   one optimizer step (8 microbatches forward and backward, clip, AdamW).
 
 The line before the last lists the kernels as JSON, and the last line is
 ``{"ok": true, "device": {...}}``. Exits 2 when no CUDA device is
@@ -69,6 +80,16 @@ MODEL_TOL_F32 = 1e-3
 MODEL_TOL_BF16 = 1.25
 CLIENTS = 16
 REQUESTS_PER_CLIENT = 8
+# the training super-batch: batch 4 x accumulation 8 at 512^2
+TRAIN_CONFIG = 'configs/lung_tumor.yaml'
+SUPER = 32
+TRAIN_ARGS = ['--synthetic', '--synthetic-volumes', '20',
+              '--synthetic-slices', '4', '--epochs', '2']
+TRAIN_SUPERBATCHES = 4   # 16 train volumes x 4 slices / 32, two epochs
+# the warp kernel against its plain version: both round every operation
+# once in the same order, so images must be bit-identical; if they are
+# not, the ULP histogram is printed and images are held to 2 ULP
+WARP_MAX_ULP = 2
 
 
 def log(*a):
@@ -166,6 +187,79 @@ def check_gates():
                                        **TOL[name])
             errs[(i, name)] = err
     return errs
+
+
+# ---------------------------------------------------------------- warp
+
+def warp_bound(n, h, w):
+    """Least time for one warp: rows and cols in (8 B/px), the image in
+    and out (4 B each), the uint8 mask in and out (1 B each); ~20 flops
+    per pixel are nothing against the card's rate."""
+    nbytes = n * h * w * (8 + 4 + 4 + 1 + 1)
+    return nbytes / HBM_BYTES_PER_S * 1e3, 'bytes', nbytes
+
+
+def warp_cases(seed=0):
+    """The warp's inputs at the training shape (SUPER x IMG^2): images,
+    uint8 masks, and three coordinate sets: the port's own augmentation
+    draws under the config's probabilities, scattered coordinates
+    running 6 px past every border, and all-.5 ties."""
+    import torch
+    from unet_tpu_torch.data.augmentations import (AugmentConfig,
+                                                   draw_augment_params,
+                                                   sampling_grid)
+    from unet_tpu_torch.utils.config import load_config
+    n, h, w = SUPER, IMG, IMG
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    img = torch.rand(n, 1, h, w, generator=gen, device=DEVICE)
+    msk = (torch.rand(n, h, w, generator=gen, device=DEVICE) > 0.7).to(
+        torch.uint8)
+    cfg = AugmentConfig.from_yaml(load_config(TRAIN_CONFIG)['augmentation'])
+    params = draw_augment_params(n, h, w, cfg, gen, torch.device(DEVICE))
+    cases = {'augment': sampling_grid(params, cfg, h, w)}
+    cases['scatter'] = (
+        torch.rand(n, h, w, generator=gen, device=DEVICE) * (h + 12) - 6,
+        torch.rand(n, h, w, generator=gen, device=DEVICE) * (w + 12) - 6)
+    rr = torch.arange(h, dtype=torch.float32, device=DEVICE)
+    cc = torch.arange(w, dtype=torch.float32, device=DEVICE)
+    cases['ties'] = ((rr[None, :, None] + 0.5).expand(n, h, w).contiguous(),
+                     (cc[None, None, :] + 0.5).expand(n, h, w).contiguous())
+    return img, msk, cases
+
+
+def ulp_histogram(got, want):
+    """Counts of |got - want| in f32 units in the last place: 0, 1, 2,
+    more (equal values, such as 0.0 and -0.0, count as 0)."""
+    import torch
+    d = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+    d = torch.where(got == want, torch.zeros_like(d), d)
+    return [int((d == k).sum()) for k in (0, 1, 2)] + [int((d > 2).sum())]
+
+
+def check_warp():
+    import torch
+    from unet_tpu_torch.ops import warp
+    img, msk, cases = warp_cases()
+    err = 0.0
+    for name, (rows, cols) in cases.items():
+        got_i, got_m = warp.grid_sample_fused(img, msk, rows, cols)
+        want_i, want_m = warp.grid_sample_fused_reference(img, msk, rows,
+                                                          cols)
+        sync()
+        assert got_i.shape == want_i.shape and got_m.dtype == torch.uint8
+        valid = float(((rows >= 0) & (rows <= IMG - 1) & (cols >= 0)
+                       & (cols <= IMG - 1)).float().mean())
+        hist = ulp_histogram(got_i, want_i)
+        e = (got_i - want_i).abs().max().item()
+        err = max(err, e)
+        log(f'warp {name} {SUPER}x{IMG}^2 ({valid:.1%} px in range, '
+            f'{int(got_m.sum())} mask px): masks identical '
+            f'{bool(torch.equal(got_m, want_m))}, images bit-identical '
+            f'{hist[0] == got_i.numel()} (ULP histogram 0/1/2/>2: {hist}), '
+            f'max |kernel - plain| = {e:.3g}')
+        assert torch.equal(got_m, want_m), f'warp {name}: masks differ'
+        assert hist[3] == 0, f'warp {name}: images beyond {WARP_MAX_ULP} ULP'
+    return err
 
 
 # ---------------------------------------------------------------- model
@@ -437,6 +531,96 @@ def serve_main_path(model, card):
         server.server_close()
 
 
+# ---------------------------------------------------------------- train
+
+def _save_pt(model, cfg, path):
+    import torch
+    torch.save({'epoch': 0, 'config': cfg, 'metrics': {},
+                'model_state_dict': {k: v.detach().cpu() for k, v in
+                                     model.state_dict().items()}}, path)
+
+
+def run_train_cli(tmp, name, config_path, init_pt):
+    from unet_tpu_torch.cli import train as train_cli
+    argv = ['--config', config_path, '--project', tmp, '--name', name,
+            '--init-weights', init_pt, *TRAIN_ARGS]
+    if DEVICE == 'cpu':
+        argv += ['--device', 'cpu']
+    return train_cli.main(argv)
+
+
+def train_main_path(card):
+    """The training path: the port's train CLI on the flagship config,
+    the warp kernel's launches counted around the run."""
+    import torch
+    import yaml
+    from unet_tpu_torch.cli.predict import load_model
+    from unet_tpu_torch.models import create_model
+    from unet_tpu_torch.ops import warp
+    from unet_tpu_torch.train.trainer import make_predict_step_u8
+    from unet_tpu_torch.utils.config import load_config
+    from unet_tpu_torch.utils.torch_port import load_torch_checkpoint
+
+    cfg = load_config(TRAIN_CONFIG)
+    m = cfg['model']
+    init = create_model(m['type'], n_channels=m['n_channels'],
+                        n_classes=m['n_classes'], bilinear=m['bilinear'],
+                        base_features=m['base_features'],
+                        deep_supervision=m['deep_supervision'],
+                        generator=torch.Generator().manual_seed(7))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_pt = f'{tmp}/init.pt'
+        _save_pt(init, cfg, init_pt)
+        warp.launch_count = 0
+        t0 = time.perf_counter()
+        hist = run_train_cli(tmp, 'aug_on', TRAIN_CONFIG, init_pt)
+        wall = time.perf_counter() - t0
+        launches = warp.launch_count
+        log(f'train: {TRAIN_CONFIG} (bf16, b4 x accum 8, augmentation on) '
+            f'ran in {wall:.1f} s with {launches} warp kernel launches for '
+            f'{TRAIN_SUPERBATCHES} super-batches; train loss '
+            f'{hist["train_loss"]}, val loss {hist["val_loss"]}')
+        assert launches == TRAIN_SUPERBATCHES, launches
+        assert all(np.isfinite(hist['train_loss'] + hist['val_loss']))
+        last = f'{hist["save_dir"]}/weights/last/model.pt'
+        before = init.state_dict()
+        after, _, _ = load_torch_checkpoint(last)
+        moved = [k for k in before if k.endswith('weight')
+                 and not torch.equal(before[k], after[k])]
+        assert all(torch.isfinite(v.float()).all() for v in after.values())
+        assert len(moved) > 0.9 * sum(k.endswith('weight') for k in before)
+        log(f'train: {len(moved)} weight tensors moved from the initial '
+            f'weights; weights/last/model.pt written')
+
+        model, meta = load_model(last, device=DEVICE)
+        rng = np.random.default_rng(11)
+        u8 = torch.from_numpy(np.array(_image(rng, IMG, IMG)[None, None])).to(
+            DEVICE)
+        prob = make_predict_step_u8(model)(u8)
+        sync()
+        assert prob.shape == (1, 2, IMG, IMG) and torch.isfinite(prob).all()
+        log(f'train: weights/last/model.pt (epoch {meta["epoch"]}) loaded '
+            f'by cli/predict.load_model and segmented a {IMG}^2 slice: '
+            f'{int((prob[0, 1] > 0.5).sum())} tumor px')
+        out['aug_on'] = hist
+
+        # the same run with augmentation off (not the main path)
+        off = dict(cfg, augmentation=dict(cfg['augmentation'],
+                                          enabled=False))
+        off_path = f'{tmp}/aug_off.yaml'
+        with open(off_path, 'w') as f:
+            yaml.safe_dump(off, f)
+        out['aug_off'] = run_train_cli(tmp, 'aug_off', off_path, init_pt)
+    n_train = 16 * 4
+    for k, hist in out.items():
+        secs = hist['train_seconds']
+        log(f'TIME train {k}: ' + ', '.join(
+            f'epoch {i + 1} {n_train / t:.2f} slices/s ({t:.3f} s)'
+            for i, t in enumerate(secs)) + f'  [{card}]')
+    return launches
+
+
 # ---------------------------------------------------------------- times
 
 def time_gates(card, errs):
@@ -475,6 +659,117 @@ def time_gates(card, errs):
     return total
 
 
+def time_warp(card, err):
+    import torch
+    from unet_tpu_torch.ops import warp
+    img, msk, cases = warp_cases()
+    rows, cols = cases['augment']
+    bound, by, nbytes = warp_bound(SUPER, IMG, IMG)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEVICE)
+    args = (img, msk, rows, cols)
+    k1 = time_ms(lambda: warp.grid_sample_fused(*args), 20, flush)
+    p1 = time_ms(lambda: warp.grid_sample_fused_reference(*args), 5, flush)
+    k2 = time_ms(lambda: warp.grid_sample_fused(*args), 20, flush)
+    ms = (k1 + k2) / 2
+    log(f'TIME warp {SUPER}x{IMG}^2 (augmentation coords): kernel '
+        f'{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} ms, bound {bound:.4f} ms '
+        f'({by}; {nbytes / 1e6:.1f} MB), roofline share {bound / ms:.1%}  '
+        f'[{card}]')
+    return {'ms': ms, 'plain_ms': p1, 'bound_ms': bound, 'bound_by': by,
+            'max_abs_err': err}
+
+
+def time_train_parts(card):
+    """The augmentation program per super-batch, and one optimizer step
+    (8 microbatches of 4 forward and backward, clip, AdamW) in bf16."""
+    import torch
+    from unet_tpu_torch.data.augmentations import (AugmentConfig,
+                                                   augment_batch_seeded)
+    from unet_tpu_torch.models import create_model
+    from unet_tpu_torch.train.losses import create_loss_function
+    from unet_tpu_torch.train.trainer import (clip_by_global_norm,
+                                              create_optimizer,
+                                              make_train_step)
+    from unet_tpu_torch.utils.config import load_config
+    cfg = load_config(TRAIN_CONFIG)
+    img, msk, _ = warp_cases(seed=1)
+    aug = AugmentConfig.from_yaml(cfg['augmentation'])
+    t_aug = time_ms(lambda: augment_batch_seeded(img, msk, 43, 0, aug), 10)
+
+    m = cfg['model']
+    model = create_model(m['type'], base_features=m['base_features'],
+                         dtype=torch.bfloat16,
+                         generator=torch.Generator().manual_seed(3))
+    model = model.to(DEVICE, memory_format=torch.channels_last)
+    tc = cfg['train']
+    opt = create_optimizer(model, tc['lr'], tc['weight_decay'])
+    lc = cfg['loss']
+    loss_fn = create_loss_function(
+        lc['type'], ce_weight=lc['ce_weight'], dice_weight=lc['dice_weight'],
+        balanced_class_weight=lc['balanced_class_weight'])
+    step = make_train_step(model, loss_fn, opt,
+                           tc['accumulation_steps'],
+                           grad_clip=tc['grad_clip'])
+    a = tc['accumulation_steps']
+    imgs = (img.reshape(a, SUPER // a, 1, IMG, IMG) - 0.5) / 0.5
+    msks = msk.reshape(a, SUPER // a, IMG, IMG)
+    mb = np.ones(a, np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    t_step = time_ms(lambda: step(imgs, msks, 1e-6, mb), 3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def fwd_bwd():
+        loss_fn(model(imgs[0]), msks[0]).backward()
+
+    def clip_adamw():
+        clip_by_global_norm([p.grad for p in model.parameters()],
+                            tc['grad_clip'])
+        opt.step()
+
+    t_fb = time_ms(fwd_bwd, 5)
+    t_opt = time_ms(clip_adamw, 5)
+    busy, wall, top = device_busy(lambda: step(imgs, msks, 1e-6, mb))
+    log(f'TIME augmentation program {SUPER}x{IMG}^2 per super-batch '
+        f'(draws, elastic smoothing, warp, photometric): {t_aug:.3f} ms  '
+        f'[{card}]')
+    log(f'TIME optimizer step (8 x b4 {IMG}^2 bf16 forward+backward, clip, '
+        f'AdamW): {t_step:.2f} ms = {SUPER / t_step * 1e3:.2f} slices/s; '
+        f'one microbatch forward+backward {t_fb:.2f} ms, clip+AdamW '
+        f'{t_opt:.2f} ms; peak device memory {peak:.2f} GiB  [{card}]')
+    log(f'TIME optimizer step under torch.profiler: wall {wall:.2f} ms, '
+        + (f'device busy {busy:.2f} ms ({busy / wall:.1%}), idle share '
+           f'{1 - busy / wall:.1%}' if busy else
+           'no device time in key_averages(): idle share not measured')
+        + f'  [{card}]')
+    for name, ms, calls in top:
+        log(f'  kernel {ms:8.2f} ms {calls:5d}x  {name[:90]}')
+
+
+def device_busy(fn, top=12):
+    """(device ms, wall ms, top kernels) of one fn() under
+    torch.profiler: the sum of the CUDA kernels' self time, the host
+    clock around the call ending in a synchronize, and the ``top``
+    kernels by device time as (name, ms, calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for e in prof.key_averages():
+        if getattr(e, 'device_type', None) == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, 'self_device_time_total',
+                         getattr(e, 'self_cuda_time_total', 0.0))
+            kernels.append((e.key, us / 1e3, e.count))
+    kernels.sort(key=lambda k: -k[1])
+    return sum(k[1] for k in kernels), wall, kernels[:top]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -501,11 +796,16 @@ def main():
                 log(f'  ptxas {name}: {line.strip()}')
 
     errs = check_gates()
+    warp_err = check_warp()
     model, _ = check_model(card)
     launches = serve_main_path(model, card)
     del model
     torch.cuda.empty_cache()
+    warp_launches = train_main_path(card)
+    torch.cuda.empty_cache()
     t = time_gates(card, errs)
+    tw = time_warp(card, warp_err)
+    time_train_parts(card)
 
     kernels = [{
         'name': 'attention_gate',
@@ -519,9 +819,25 @@ def main():
         'bound_ms': t['bound_ms'],
         'bound_by': t['bound_by'],
         'library_ms': None,  # no single PyTorch call computes the gate
+    }, {
+        'name': 'warp',
+        'route': 'cuda',
+        'source': 'unet_tpu_torch/csrc/warp.cu',
+        'replaces': 'unet_tpu/ops/pallas/warp.py:289',
+        'launches': warp_launches,
+        'max_abs_err': tw['max_abs_err'],
+        'ms': tw['ms'],
+        'plain_ms': tw['plain_ms'],
+        'bound_ms': tw['bound_ms'],
+        'bound_by': tw['bound_by'],
+        # F.grid_sample blends an out-of-range tap as zero where this
+        # function zeroes the whole pixel, and has no nearest-mask tie
+        # rule: no single PyTorch call computes the warp
+        'library_ms': None,
     }]
     log(f'(kernel times: the four 512^2 gates of one bf16 forward at batch '
-        f'{BATCH}, summed; total run {time.perf_counter() - t_start:.1f} s)')
+        f'{BATCH}, summed; the warp of one {SUPER}x{IMG}^2 super-batch; '
+        f'total run {time.perf_counter() - t_start:.1f} s)')
     log(card)  # as nvidia-smi prints it: name, power limit
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

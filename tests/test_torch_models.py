@@ -155,6 +155,15 @@ def test_fused_gate_model_matches_jax_fused_path(monkeypatch, capsys):
 
 
 def test_train_mode_is_not_ported_yet():
+    """Train mode is ported now (the name is kept from when it raised): a
+    fresh model is in training mode, and its forward normalizes with the
+    batch statistics and moves the running ones. tests/test_torch_train.py
+    holds train mode against flax."""
     model = create_model('unet', base_features=4)
-    with pytest.raises(NotImplementedError, match='eval'):
-        model(torch.zeros(1, 1, 32, 32))
+    assert model.training
+    bn = model.inc.double_conv[1]
+    x = torch.randn(2, 1, 32, 32, generator=torch.Generator().manual_seed(0))
+    out = model(x)
+    assert out.shape == (2, 2, 32, 32) and torch.isfinite(out).all()
+    assert not torch.equal(bn.running_mean, torch.zeros(4))
+    assert int(bn.num_batches_tracked) == 1

@@ -15,26 +15,45 @@ Where each part of ``unet_tpu`` lives here:
   unet_tpu/ops/pallas/attention_gate.py
                                    -> ops/attention_gate.py + the CUDA
                                       kernel csrc/attention_gate.cu
-                                      (built by ops/_build.py)
-  unet_tpu/models/{layers,unet}.py -> models/{layers,unet}.py (eval mode)
-  unet_tpu/utils/torch_port.py     -> utils/torch_port.py
-  unet_tpu/train/trainer.py        -> train/trainer.py (predict steps)
+  unet_tpu/ops/pallas/warp.py      -> ops/warp.py + the CUDA kernel
+                                      csrc/warp.cu (both kernels built
+                                      by ops/_build.py)
+  unet_tpu/models/{layers,unet}.py -> models/{layers,unet}.py (train and
+                                      eval mode)
+  unet_tpu/data/augmentations.py   -> data/augmentations.py (draws split
+                                      from the deterministic apply)
+  unet_tpu/data/dataset.py         -> data/dataset.py
   unet_tpu/data/cache.py           -> data/cache.py (native decode only)
+  unet_tpu/train/losses.py         -> train/losses.py
+  unet_tpu/train/metrics.py        -> train/metrics.py
+  unet_tpu/train/schedules.py      -> train/schedules.py
+  unet_tpu/train/trainer.py        -> train/trainer.py (AdamW with the
+                                      optax clip rule, train/eval/predict
+                                      steps, EMA)
+  unet_tpu/train/callbacks.py      -> train/callbacks.py (reference .pt
+                                      checkpoints)
+  unet_tpu/utils/config.py         -> utils/config.py
+  unet_tpu/utils/torch_port.py     -> utils/torch_port.py
   unet_tpu/cli/predict.py          -> cli/predict.py (model loading and
                                       pre/postprocessing)
   unet_tpu/cli/serve.py            -> cli/serve.py (one GPU)
+  unet_tpu/cli/train.py            -> cli/train.py (one GPU)
 
-Still to port, in order: the train step with on-device augmentation and
-its warp kernel (ops/pallas/warp.py), the 3x3 implicit-GEMM conv kernel
-(ops/pallas/conv3x3.py), losses/metrics/schedules/callbacks, the data
-pipeline, the train/predict/overfit/export CLIs, and multi-GPU
-(core/mesh.py, core/distributed.py).
+Still to port, in order: the 3x3 implicit-GEMM conv kernel
+(ops/pallas/conv3x3.py); the rest of the train CLI (--resume, the slice
+cache of data/cache.py, --profile-dir with utils/profiling.py, the plots
+of utils/plots.py); the directory predict CLI, the overfit and export
+CLIs; multi-GPU (core/mesh.py, core/distributed.py).
 
 Not ported, because they are TPU lowerings of math ATen/cuDNN already
 do: ops/s2d.py and IncPoolS2D (UNET_TPU_S2D, UNET_TPU_S2D_LEVEL),
 ops/pool.py::max_pool_2x2 (UNET_TPU_ELEMENTWISE_POOL),
 UNET_TPU_EVAL_CONCAT, UNET_TPU_MM_RESIZE, UNET_TPU_PSI_EINSUM, buffer
-donation and the XLA compile cache (core/setup.py).
+donation and the XLA compile cache (core/setup.py); and the warp's TPU
+mechanics: warp_supported's H%8/W%128 gate, UNET_TPU_WARP_TILED_GATHER,
+UNET_TPU_WARP_BAND2D and _warp_cp's custom_partitioning. There is no
+counterpart of UNET_TPU_PALLAS_WARP: a CUDA tensor always takes the warp
+kernel.
 """
 
 import torch

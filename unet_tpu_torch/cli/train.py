@@ -1,0 +1,414 @@
+#!/usr/bin/env python
+"""Train UNet / Attention U-Net for lung-tumor segmentation on one GPU.
+
+Counterpart of ``unet_tpu/cli/train.py``, with its flags and epoch loop:
+
+  * microbatches of ``data.batch_size`` grouped into super-batches of
+    ``train.accumulation_steps`` (a shorter last one is padded and its
+    padding masked out: the leftover flush);
+  * each super-batch is augmented on the device in one call (the fused
+    warp kernel for C == 1), from a generator seeded by (seed + 1, step);
+  * one optimizer step per super-batch: grads summed over the real
+    microbatches, global-norm clip, AdamW, optional EMA;
+  * validation on the device's confusion matrix, the EMA warmup state
+    machine, ``last``/``best`` checkpoints in the reference ``.pt``
+    payload, scheduler stepping, early stopping and ``history.json``.
+
+Runs on CUDA unless ``--device cpu`` (or ``device: cpu`` in the config)
+asks for the CPU; where CUDA is asked for and absent it raises.
+
+    python -m unet_tpu_torch.cli.train --config configs/lung_tumor.yaml \\
+        --synthetic --epochs 2
+
+``--resume``, ``--cache``, ``--profile-dir`` and the multi-host flags
+are not ported yet: each stops argument parsing with a message.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+NOT_PORTED = {
+    '--resume': 'resuming a run',
+    '--cache': 'the slice cache',
+    '--profile-dir': 'profiler traces',
+    '--coordinator': 'multi-host training',
+    '--num-processes': 'multi-host training',
+    '--process-id': 'multi-host training',
+}
+
+
+class _NotPorted(argparse.Action):
+    def __call__(self, parser, namespace, values, option_string=None):
+        parser.error(f'{option_string} ({NOT_PORTED[option_string]}) is not '
+                     'ported to unet_tpu_torch yet; the JAX CLI '
+                     '(python -m unet_tpu.cli.train) has it')
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description='Train lung tumor segmentation')
+    p.add_argument('--config', type=str, default='configs/lung_tumor.yaml')
+    p.add_argument('--data', type=str, default=None,
+                   help='dataset root (overrides config)')
+    p.add_argument('--img-size', type=int, default=None)
+    p.add_argument('--batch-size', type=int, default=None)
+    p.add_argument('--workers', type=int, default=None)
+    p.add_argument('--epochs', type=int, default=None)
+    p.add_argument('--lr', type=float, default=None)
+    p.add_argument('--init-weights', type=str, default=None,
+                   help='initialize the model from a reference-format .pt '
+                        '(optimizer, scheduler and epoch start fresh)')
+    p.add_argument('--name', type=str, default=None)
+    p.add_argument('--project', type=str, default=None)
+    p.add_argument('--device', type=str, default=None,
+                   help='"cpu" runs on the CPU; default CUDA')
+    p.add_argument('--synthetic', action='store_true',
+                   help='use a synthetic dataset (no files needed)')
+    p.add_argument('--synthetic-volumes', type=int, default=12,
+                   help='synthetic dataset: number of volumes')
+    p.add_argument('--synthetic-slices', type=int, default=4,
+                   help='synthetic dataset: slices per volume')
+    p.add_argument('--synthetic-tumor-radius', type=str, default=None,
+                   metavar='MIN,MAX',
+                   help='synthetic dataset: tumor radius range as a '
+                        'fraction of img_size (default 0.02,0.05)')
+    p.add_argument('--debug-nans', action='store_true',
+                   help='fail on the first non-finite loss (reads each '
+                        'super-batch loss back, which syncs)')
+    for flag in NOT_PORTED:
+        p.add_argument(flag, action=_NotPorted, help=argparse.SUPPRESS)
+    return p.parse_args(argv)
+
+
+def apply_overrides(config, args):
+    """CLI-over-YAML override merge."""
+    if args.data:
+        config['data']['root'] = args.data
+    if args.img_size:
+        config['data']['img_size'] = args.img_size
+    if args.batch_size:
+        config['data']['batch_size'] = args.batch_size
+    if args.workers:
+        config['data']['num_workers'] = args.workers
+    if args.epochs:
+        config['train']['epochs'] = args.epochs
+    if args.lr:
+        config['train']['lr'] = args.lr
+    if args.name:
+        config['output']['experiment_name'] = args.name
+    if args.project:
+        config['output']['save_dir'] = args.project
+    if args.device:
+        config['device'] = args.device
+    return config
+
+
+def main(argv=None):
+    """Run the training; returns the epoch history (the dict written to
+    ``history.json``) with the run directory under ``'save_dir'`` and
+    each epoch's train wall time under ``'train_seconds'``."""
+    args = parse_args(argv)
+
+    from unet_tpu_torch import resolve_device
+    from unet_tpu_torch.data.augmentations import (AugmentConfig,
+                                                   augment_batch_seeded,
+                                                   normalize_batch)
+    from unet_tpu_torch.data.dataset import (BatchLoader, SliceDataset,
+                                             SyntheticSliceDataset,
+                                             prefetch_to_device)
+    from unet_tpu_torch.models import create_model
+    from unet_tpu_torch.train.callbacks import (CheckpointManager,
+                                                EarlyStopping)
+    from unet_tpu_torch.train.losses import create_loss_function
+    from unet_tpu_torch.train.metrics import SegmentationMetrics
+    from unet_tpu_torch.train.schedules import create_scheduler
+    from unet_tpu_torch.train.trainer import (create_optimizer, ema_reinit,
+                                              make_eval_step,
+                                              make_train_step)
+    from unet_tpu_torch.utils.config import (describe_devices,
+                                             get_nested_metric,
+                                             increment_path, load_config,
+                                             set_seed, validate_config)
+    from unet_tpu_torch.utils.torch_port import load_torch_checkpoint
+
+    config = apply_overrides(load_config(args.config), args)
+    validate_config(config)
+    device = resolve_device(str(config.get('device') or '') or None)
+    seed = config.get('seed', 42)
+    set_seed(seed)
+    print(f'Using device: {describe_devices(device)}')
+
+    save_dir = increment_path(Path(config['output']['save_dir'])
+                              / config['output']['experiment_name'])
+    weights_dir = save_dir / 'weights'
+    weights_dir.mkdir(parents=True, exist_ok=True)
+    print(f'Results will be saved to: {save_dir}')
+
+    # ---- data ----
+    data_cfg = config['data']
+    if data_cfg.get('cache'):
+        raise ValueError('data.cache (the slice cache) is not ported to '
+                         'unet_tpu_torch yet')
+    img_size = data_cfg['img_size']
+    batch_size = data_cfg['batch_size']
+    split_kw = dict(val_ratio=data_cfg.get('val_ratio', 0.2), seed=seed)
+    if args.synthetic:
+        ds_kwargs = dict(num_volumes=args.synthetic_volumes,
+                         slices_per_volume=args.synthetic_slices,
+                         img_size=img_size, **split_kw)
+        if args.synthetic_tumor_radius:
+            lo, hi = (float(v) for v in
+                      args.synthetic_tumor_radius.split(','))
+            ds_kwargs['tumor_radius'] = (lo, hi)
+        train_ds = SyntheticSliceDataset(split='train', **ds_kwargs)
+        val_ds = SyntheticSliceDataset(split='val', **ds_kwargs)
+    else:
+        train_ds = SliceDataset(data_cfg['root'], 'train',
+                                img_size=img_size, **split_kw)
+        val_ds = SliceDataset(data_cfg['root'], 'val', img_size=img_size,
+                              **split_kw)
+    workers = data_cfg.get('num_workers', 8)
+    train_loader = BatchLoader(train_ds, batch_size, shuffle=True,
+                               drop_last=True, seed=seed,
+                               num_threads=workers, raw_uint8=True)
+    val_loader = BatchLoader(val_ds, batch_size, shuffle=False,
+                             num_threads=workers, raw_uint8=True)
+    print(f'Train samples: {len(train_ds)}, Val samples: {len(val_ds)}')
+
+    aug_yaml = config.get('augmentation', {})
+    augment_enabled = aug_yaml.get('enabled', True)
+    aug_cfg = AugmentConfig.from_yaml(aug_yaml)
+
+    # ---- model ----
+    model_cfg = config['model']
+    tpu_cfg = config.get('tpu', {})
+    dtype = (torch.bfloat16 if tpu_cfg.get('compute_dtype', 'bfloat16')
+             == 'bfloat16' else torch.float32)
+    deep_supervision = model_cfg.get('deep_supervision', False)
+    mtype = model_cfg.get('type', 'unet').lower()
+    if mtype == 'attention':
+        mtype = 'attention_unet'
+    model = create_model(mtype, n_channels=model_cfg['n_channels'],
+                         n_classes=model_cfg['n_classes'],
+                         bilinear=model_cfg.get('bilinear', True),
+                         base_features=model_cfg.get('base_features', 64),
+                         deep_supervision=deep_supervision, dtype=dtype,
+                         use_fused_gate=tpu_cfg.get('fused_attention_gate'),
+                         generator=torch.Generator().manual_seed(seed))
+    if args.init_weights:
+        print(f'Initializing weights from {args.init_weights}')
+        state, _, _ = load_torch_checkpoint(args.init_weights)
+        model.load_state_dict(state, strict=True)
+    model = model.to(device, memory_format=torch.channels_last)
+    n_classes = model_cfg['n_classes']
+    print(f'Model parameters: {model.get_num_params():,}')
+
+    ema_cfg = config.get('ema', {})
+    use_ema = ema_cfg.get('enabled', True)
+    ema_decay = ema_cfg.get('decay', 0.99)
+    ema_warmup_epochs = ema_cfg.get('warmup_epochs', 5) if use_ema else 0
+    ema = ema_reinit(model) if use_ema else None
+    if use_ema:
+        print(f'Using EMA with decay={ema_decay}, '
+              f'warmup={ema_warmup_epochs} epochs')
+
+    loss_cfg = config['loss']
+    loss_fn = create_loss_function(
+        loss_type=loss_cfg['type'],
+        ce_weight=loss_cfg.get('ce_weight', 1.0),
+        dice_weight=loss_cfg.get('dice_weight', 1.0),
+        class_weights=loss_cfg.get('class_weights'),
+        balanced_class_weight=loss_cfg.get('balanced_class_weight', 0.5),
+        deep_supervision=deep_supervision)
+    print(f"Loss function: {loss_cfg['type']}"
+          + (' + Deep Supervision' if deep_supervision else ''))
+
+    train_cfg = config['train']
+    base_lr = train_cfg['lr']
+    opt = create_optimizer(model, base_lr,
+                           weight_decay=train_cfg.get('weight_decay', 1e-4))
+    accum = train_cfg.get('accumulation_steps', 1)
+    if accum > 1:
+        print(f'Gradient accumulation: {accum} steps '
+              f'(effective batch={batch_size * accum})')
+    train_step = make_train_step(model, loss_fn, opt, accum_steps=accum,
+                                 ema_decay=ema_decay, use_ema=use_ema,
+                                 grad_clip=train_cfg.get('grad_clip', 0.0))
+    eval_step = make_eval_step(model, loss_fn, n_classes)
+    # the EMA weights are validated in a shadow copy of the model
+    shadow = copy.deepcopy(model) if use_ema else None
+    eval_shadow = (make_eval_step(shadow, loss_fn, n_classes)
+                   if use_ema else None)
+
+    # ---- scheduler / callbacks ----
+    epochs = train_cfg['epochs']
+    sched_kind, scheduler = create_scheduler(config.get('scheduler', {}),
+                                             base_lr, epochs)
+    es_cfg = config.get('early_stopping', {})
+    early_stopping = (EarlyStopping(patience=es_cfg.get('patience', 20),
+                                    mode=es_cfg.get('mode', 'max'))
+                      if es_cfg.get('enabled', True) else None)
+    monitor = es_cfg.get('monitor', 'class_dice.tumor')
+    checkpoint = CheckpointManager(
+        weights_dir, monitor=monitor, mode=es_cfg.get('mode', 'max'),
+        save_last=config['output'].get('save_last', True),
+        save_best=config['output'].get('save_best', True))
+    metrics = SegmentationMetrics(n_classes, ['background', 'tumor'])
+    print(f'Monitoring metric: {monitor}')
+
+    history = {k: [] for k in ('train_loss', 'val_loss', 'val_dice',
+                               'val_iou', 'val_accuracy', 'tumor_dice',
+                               'lr')}
+    aug_step = 0
+    train_seconds = []
+
+    def run_validation(step_fn):
+        metrics.reset()
+        loss_sum, cm_sum, n_batches = None, None, 0
+        for images, masks in prefetch_to_device(val_loader, device):
+            images = normalize_batch(images.float() / 255.0)
+            loss, cm = step_fn(images, masks)
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+            cm_sum = cm if cm_sum is None else cm_sum + cm
+            n_batches += 1
+        if cm_sum is not None:
+            metrics.update_from_matrix(cm_sum)
+        results = metrics.compute()
+        results['loss'] = (float(loss_sum) / n_batches if n_batches
+                           else 0.0)
+        return results
+
+    def superbatches():
+        """``accum`` microbatches stacked into one uint8 payload, with
+        the (A,) mask of real microbatches; a short last group is padded
+        by repeating its last microbatch (the leftover flush)."""
+        pending = []
+
+        def emit(batches):
+            mb = np.zeros((accum,), np.float32)
+            mb[:len(batches)] = 1.0
+            batches = batches + [batches[-1]] * (accum - len(batches))
+            return (np.stack([b[0] for b in batches]),
+                    np.stack([b[1] for b in batches]), mb)
+
+        for images, masks in train_loader:
+            pending.append((images, masks))
+            if len(pending) == accum:
+                yield emit(pending)
+                pending = []
+        if pending:
+            yield emit(pending)
+
+    print('\nStarting training...')
+    print('=' * 60)
+    for epoch in range(epochs):
+        lr = scheduler(epoch) if sched_kind == 'epoch' else scheduler.lr
+        print(f'\nEpoch {epoch + 1}/{epochs} (lr={lr:.2e})')
+        t0 = time.time()
+
+        loss_sums, n_micro = [], 0
+        mb_queue = []
+
+        def device_stream():
+            for imgs, msks, mb in superbatches():
+                mb_queue.append(mb)
+                yield imgs, msks
+
+        for imgs, msks in prefetch_to_device(device_stream(), device):
+            mb = mb_queue.pop(0)
+            n_micro += int(mb.sum())
+            a, b = imgs.shape[:2]
+            imgs = imgs.float() / 255.0
+            if augment_enabled:
+                flat_i, flat_m = augment_batch_seeded(
+                    imgs.reshape(a * b, *imgs.shape[2:]),
+                    msks.reshape(a * b, *msks.shape[2:]), seed + 1,
+                    aug_step, aug_cfg)
+                aug_step += 1
+                imgs = flat_i.reshape(imgs.shape)
+                msks = flat_m.reshape(msks.shape)
+            else:
+                imgs = normalize_batch(imgs)
+            loss_sum = train_step(imgs, msks, lr, mb, ema)
+            if args.debug_nans and not torch.isfinite(loss_sum):
+                raise FloatingPointError(
+                    f'non-finite loss at epoch {epoch + 1}, optimizer step '
+                    f'{train_step.steps}')
+            loss_sums.append(loss_sum)
+        train_loss = (sum(torch.stack(loss_sums).tolist()) if loss_sums
+                      else 0.0) / max(n_micro, 1)
+        train_dt = time.time() - t0  # tolist() above waited for the steps
+        train_seconds.append(train_dt)
+
+        # ---- EMA warmup state machine ----
+        use_ema_for_val = use_ema and epoch >= ema_warmup_epochs
+        if use_ema and epoch == ema_warmup_epochs:
+            ema = ema_reinit(model)
+            print(f'  EMA re-initialized from training model at epoch '
+                  f'{epoch + 1}')
+        if use_ema_for_val:
+            shadow.load_state_dict(ema.state_dict())
+            val_state, val_model_name = shadow.state_dict(), 'EMA model'
+            val_results = run_validation(eval_shadow)
+        else:
+            val_state = model.state_dict()
+            val_model_name = ('training model (EMA warmup)' if use_ema
+                              else 'training model')
+            val_results = run_validation(eval_step)
+        dt = time.time() - t0
+
+        history['train_loss'].append(train_loss)
+        history['val_loss'].append(val_results['loss'])
+        history['val_dice'].append(val_results['mean_dice'])
+        history['val_iou'].append(val_results['mean_iou'])
+        history['val_accuracy'].append(val_results['pixel_accuracy'])
+        history['tumor_dice'].append(
+            val_results['class_dice'].get('tumor', 0.0))
+        history['lr'].append(lr)
+
+        print(f'  Train Loss: {train_loss:.4f}  ({train_dt:.1f}s, '
+              f'{len(train_ds) / max(train_dt, 1e-9):.1f} slices/s; '
+              f'val {dt - train_dt:.1f}s)')
+        print(f"  Val [{val_model_name}]: Loss={val_results['loss']:.4f} | "
+              f"Dice={val_results['mean_dice']:.4f} | "
+              f"IoU={val_results['mean_iou']:.4f} | "
+              f"Acc={val_results['pixel_accuracy']:.4f}")
+        print(f"  Tumor Dice: {val_results['class_dice'].get('tumor', 0):.4f}"
+              f" | Tumor IoU: {val_results['class_iou'].get('tumor', 0):.4f}")
+
+        sched_state = (scheduler.state_dict() if sched_kind == 'plateau'
+                       else None)
+        checkpoint.save(val_state, opt.state_dict(), epoch, val_results,
+                        config=config, scheduler_state=sched_state,
+                        step=train_step.steps)
+
+        monitored = get_nested_metric(val_results, monitor)
+        if sched_kind == 'plateau':
+            scheduler.step(monitored)
+        if early_stopping and early_stopping(monitored):
+            print('\nEarly stopping triggered!')
+            break
+
+    print('\n' + '=' * 60)
+    print('Training complete!')
+    (save_dir / 'history.json').write_text(
+        json.dumps({k: [float(v) for v in vs] for k, vs in history.items()},
+                   indent=1))
+    print(f'\nResults saved to: {save_dir}')
+    if history['tumor_dice']:
+        best = max(history['tumor_dice'])
+        print(f'Best Tumor Dice: {best:.4f} at epoch '
+              f'{history["tumor_dice"].index(best) + 1}')
+    return {**history, 'save_dir': str(save_dir),
+            'train_seconds': train_seconds}
+
+
+if __name__ == '__main__':
+    main()

@@ -1,2 +1,2 @@
-"""Host-side data helpers (native request decode; the dataset and
-augmentation pipeline join in later slices)."""
+"""Host-side data: the dataset and batch loader, on-device augmentation,
+and the native request decode."""

@@ -1,4 +1,4 @@
-"""UNet / Attention U-Net (PyTorch, eval mode)."""
+"""UNet / Attention U-Net (PyTorch)."""
 
 from unet_tpu_torch.models.unet import (MODEL_REGISTRY, AttentionUNet, UNet,
                                         create_model, init_parameters)

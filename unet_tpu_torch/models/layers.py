@@ -1,4 +1,4 @@
-"""U-Net building blocks as PyTorch modules (eval mode).
+"""U-Net building blocks as PyTorch modules.
 
 Counterpart of ``unet_tpu/models/layers.py``. Tensors are NCHW in
 ``torch.channels_last`` memory. Parameters and BatchNorm buffers stay
@@ -15,9 +15,9 @@ Blocks:
   AttentionGate  additive attention; fused CUDA kernel in eval
   AttentionUp    gate the skip, then Up
 
-Train-mode BatchNorm (batch statistics, unbiased running variance) comes
-with the training slice of the port; until then a module in training
-mode raises.
+In training mode BatchNorm normalizes with the batch statistics and
+updates its running statistics (torch semantics), and the attention
+gate upsamples W_g's output before its BatchNorm, as the reference does.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from unet_tpu_torch.ops.resize import (pad_to_match,
                                        upsample2x_align_corners)
 
 _BN_EPS = 1e-5
+_BN_MOMENTUM = 0.9  # old-stat fraction (torch's momentum 0.1 is the new one)
 
 
 class Conv2d(nn.Conv2d):
@@ -60,11 +61,18 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 
 class TorchBatchNorm(nn.Module):
-    """Eval-mode BatchNorm2d with the JAX package's rounding: the
-    multiplier ``scale * rsqrt(var + eps)`` is formed in float32 and cast,
-    then ``(x - mean) * mul + bias`` runs in the input's dtype (cuDNN's
-    BatchNorm would keep bf16 inputs in float32). State-dict names are
-    ``nn.BatchNorm2d``'s."""
+    """BatchNorm2d with torch's semantics and the JAX package's rounding:
+    the multiplier ``scale * rsqrt(var + eps)`` is formed in float32 and
+    cast, then ``(x - mean) * mul + bias`` runs in the input's dtype
+    (cuDNN's BatchNorm would keep bf16 inputs in float32). State-dict
+    names are ``nn.BatchNorm2d``'s.
+
+    Training mode normalizes with the BIASED batch variance and moves the
+    running variance toward the UNBIASED one (factor n/(n-1)), both at
+    momentum 0.1. Mean and ``E[x^2] - E[x]^2`` (clamped at 0) are taken
+    in float32 whatever the input's dtype, as the JAX package's
+    ``TorchBatchNorm`` does; gradients flow through the batch
+    statistics."""
 
     def __init__(self, num_features: int, eps: float = _BN_EPS):
         super().__init__()
@@ -77,12 +85,24 @@ class TorchBatchNorm(nn.Module):
                              torch.tensor(0, dtype=torch.long))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                'train-mode BatchNorm is not ported yet; call .eval()')
         dt = x.dtype
-        mul = (self.weight * torch.rsqrt(self.running_var + self.eps)).to(dt)
-        return ((x - self.running_mean.to(dt).view(1, -1, 1, 1))
+        if self.training:
+            xf = x.float()
+            mean = xf.mean((0, 2, 3))
+            var = torch.clamp(torch.square(xf).mean((0, 2, 3))
+                              - torch.square(mean), min=0.0)
+            n = x.numel() // x.shape[1]
+            with torch.no_grad():
+                m = _BN_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1.0 - m) * var * (n / max(n - 1, 1)))
+                self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = (self.weight * torch.rsqrt(var + self.eps)).to(dt)
+        return ((x - mean.to(dt).view(1, -1, 1, 1))
                 * mul.view(1, -1, 1, 1) + self.bias.to(dt).view(1, -1, 1, 1))
 
 
@@ -186,9 +206,12 @@ class AttentionGate(nn.Module):
     ``use_fused`` takes the fused gate in eval mode wherever
     ``fused_shapes_supported`` holds: BatchNorm is folded from the
     running stats and ``attention_gate_fused`` runs the CUDA kernel (its
-    plain version for CPU tensors). Otherwise W_g and its BN run at low
-    resolution and the result is upsampled (exact in eval: both are
-    per-pixel affine maps, which commute with the interpolation).
+    plain version for CPU tensors). Otherwise, in eval, W_g and its BN
+    run at low resolution and the result is upsampled (exact in eval:
+    both are per-pixel affine maps, which commute with the
+    interpolation). In training the batch statistics must come from the
+    upsampled map, so W_g runs at low resolution (linear, so exact), the
+    result is upsampled, and then its BN runs.
     """
 
     def __init__(self, gate_channels: int, skip_channels: int,
@@ -208,8 +231,12 @@ class AttentionGate(nn.Module):
         if (self.use_fused and not self.training
                 and fused_shapes_supported(g.shape, x.shape)):
             return self._fused(g, x)
-        g1 = resize_bilinear_align_corners(self.W_g(g), x.shape[2],
-                                           x.shape[3])
+        h, w = x.shape[2], x.shape[3]
+        if self.training:
+            conv, bn = self.W_g
+            g1 = bn(resize_bilinear_align_corners(conv(g), h, w))
+        else:
+            g1 = resize_bilinear_align_corners(self.W_g(g), h, w)
         a = torch.sigmoid(self.psi(torch.relu(g1 + self.W_x(x))))
         return x * a.to(x.dtype)
 

@@ -1,10 +1,12 @@
-"""UNet / Attention U-Net as PyTorch modules (eval mode).
+"""UNet / Attention U-Net as PyTorch modules.
 
 Counterpart of ``unet_tpu/models/unet.py``: a 4-level encoder (base 64:
 64/128/256/512, bottleneck 1024 // factor with factor 2 when bilinear),
 a decoder of Up/AttentionUp blocks and a 1x1 OutConv head. AttentionUNet
-keeps its optional deep-supervision heads in the parameter tree; in eval
-mode it returns only the logits.
+keeps its optional deep-supervision heads in the parameter tree; in
+training mode it returns ``(logits, ds1, ds2, ds3)``, the heads on the
+1/2, 1/4 and 1/8 decoder maps upsampled (align-corners, float32) to the
+input size, and in eval mode only the logits.
 
 I/O: input (N, n_channels, H, W) float, output float32 logits
 (N, n_classes, H, W). The network runs in ``dtype`` in channels_last
@@ -22,6 +24,7 @@ import torch.nn as nn
 from unet_tpu_torch.models.layers import (AttentionUp, Conv2d,
                                           ConvTranspose2d, DoubleConv, Down,
                                           OutConv, Up)
+from unet_tpu_torch.ops.resize import resize_bilinear_align_corners
 
 
 class _ParamCount:
@@ -97,14 +100,14 @@ class AttentionUNet(_ParamCount, nn.Module):
         self.up3 = AttentionUp(f * 4, f * 2 // factor, bilinear, fg)
         self.up4 = AttentionUp(f * 2, f, bilinear, fg)
         self.outc = OutConv(f, n_classes)
+        self.deep_supervision = deep_supervision
         if deep_supervision:
-            # in the parameter tree so checkpoints match; the training
-            # slice returns their upsampled outputs in train mode
+            # in the parameter tree in eval mode too, so checkpoints match
             self.ds_out3 = OutConv(f * 8 // factor, n_classes)
             self.ds_out2 = OutConv(f * 4 // factor, n_classes)
             self.ds_out1 = OutConv(f * 2 // factor, n_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
         x1 = self.inc(_prepare(x, self.dtype))
         x2 = self.down1(x1)
         x3 = self.down2(x2)
@@ -114,7 +117,13 @@ class AttentionUNet(_ParamCount, nn.Module):
         d3 = self.up2(d4, x3)
         d2 = self.up3(d3, x2)
         d1 = self.up4(d2, x1)
-        return self.outc(d1).float()
+        logits = self.outc(d1).float()
+        if not (self.deep_supervision and self.training):
+            return logits
+        h, w = x.shape[2], x.shape[3]
+        up = lambda t: resize_bilinear_align_corners(t.float(), h, w)
+        return (logits, up(self.ds_out1(d2)), up(self.ds_out2(d3)),
+                up(self.ds_out3(d4)))
 
 
 MODEL_REGISTRY = {

@@ -1,2 +1,3 @@
-"""Tensor ops of the port: resize, pool, bit-packing and the fused
-attention gate (CUDA kernel plus its plain PyTorch version)."""
+"""Tensor ops of the port: resize, pool, bit-packing, the fused
+attention gate and the fused augmentation warp (CUDA kernels plus their
+plain PyTorch versions)."""

@@ -1,2 +1,2 @@
-"""Step factories (the predict steps; the train step joins in a later
-slice)."""
+"""Training: losses, metrics, schedules, callbacks, and the train, eval
+and predict steps."""

@@ -1,20 +1,36 @@
-"""Predict-step factories (counterpart of the predict half of
-``unet_tpu/train/trainer.py``; the train step joins with the training
-slice).
+"""Train, eval and predict steps.
 
-Each factory closes over an eval-mode model and returns a function of
-tensors on the model's device that runs under ``torch.inference_mode``.
-Inputs are NCHW: float images (N, C, H, W) or raw uint8 slices
-(N, 1, H, W), normalized on the device as ``(x/255 - 0.5)/0.5``.
+Counterpart of ``unet_tpu/train/trainer.py``:
+
+* ``make_train_step`` runs one optimizer step over a super-batch of
+  ``accum_steps`` microbatches shaped (A, B, C, H, W): forward and
+  backward per real microbatch (grads summed), then the global-norm
+  clip, AdamW and the EMA update. It returns the summed loss as a device
+  scalar, so the host never waits on a step.
+* A per-microbatch mask reproduces the leftover flush: padded
+  microbatches (mask 0) are skipped entirely (no forward, so BatchNorm's
+  running statistics move on real microbatches only), and the grad sum
+  is still divided by ``accum_steps``.
+* ``make_eval_step`` returns (loss, confusion matrix) on the device.
+* The EMA shadow blends parameters and copies BatchNorm buffers.
+* The predict steps normalize uint8 input on the device and threshold
+  and bit-pack masks there.
+
+Parameters, grads and optimizer state are float32; the model computes
+in its ``dtype``.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn as nn
 
 from unet_tpu_torch.ops.bitpack import pack_masks_device
+from unet_tpu_torch.train.metrics import confusion_matrix_update
 
 
 def make_predict_step(model) -> Callable:
@@ -67,3 +83,171 @@ def make_serve_masks_step(model) -> Callable:
         return pack_masks_device(tumor > thresholds[:, None, None])
 
     return step
+
+
+# ---------------------------------------------------------------- training
+
+def create_optimizer(model: nn.Module, lr: float,
+                     weight_decay: float = 1e-4) -> torch.optim.AdamW:
+    """AdamW (0.9, 0.999, eps 1e-8) with weight decay on every parameter,
+    BatchNorm scale and bias included, as the JAX package's optax chain.
+    The global-norm clip is ``clip_by_global_norm``, applied by the train
+    step before ``step()``; the train loop sets the learning rate each
+    epoch."""
+    return torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999),
+                             eps=1e-8, weight_decay=weight_decay)
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
+    """optax's rule, in place: where the global L2 norm of ``grads`` is
+    not below ``max_norm``, each grad becomes ``(g / norm) * max_norm``
+    (``clip_grad_norm_`` would divide by ``norm + 1e-6`` instead). Stays
+    on the device; returns the norm."""
+    grads = list(grads)
+    norm = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g.float()) for g in grads]))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    return norm
+
+
+@dataclasses.dataclass
+class EmaState:
+    """EMA shadow of a model: float32 parameter copies, BatchNorm buffer
+    copies, and the number of updates."""
+    params: Dict[str, torch.Tensor]
+    buffers: Dict[str, torch.Tensor]
+    updates: int = 0
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The shadow as a model state dict (for ``load_state_dict``)."""
+        return {**self.params, **self.buffers}
+
+
+def ema_reinit(model: nn.Module) -> EmaState:
+    """A fresh EMA from the live model (copies, not aliases), with its
+    update counter at 0."""
+    return EmaState(
+        params={k: p.detach().clone() for k, p in model.named_parameters()},
+        buffers={k: b.detach().clone() for k, b in model.named_buffers()})
+
+
+@torch.no_grad()
+def ema_update(ema: EmaState, model: nn.Module, decay: float,
+               warmup_steps: int = 0) -> EmaState:
+    """One EMA update in place: optional early ramp
+    min(decay, (1+u)/(10+u)) for the first ``warmup_steps`` updates,
+    params blended as ``d*e + (1-d)*p`` in float32, buffers copied."""
+    ema.updates += 1
+    u = ema.updates
+    d = decay
+    if warmup_steps > 0 and u <= warmup_steps:
+        d = min(decay, (1.0 + u) / (10.0 + u))
+    d32 = np.float32(d)
+    one_minus = float(np.float32(1.0) - d32)
+    for k, p in model.named_parameters():
+        e = ema.params[k]
+        e.copy_(e * float(d32) + p * one_minus)
+    for k, b in model.named_buffers():
+        ema.buffers[k].copy_(b)
+    return ema
+
+
+class TrainStep:
+    """One optimizer step over a super-batch; see ``make_train_step``.
+    ``steps`` counts the optimizer steps taken."""
+
+    def __init__(self, model: nn.Module, loss_fn: Callable,
+                 opt: torch.optim.Optimizer, accum_steps: int,
+                 grad_clip: float = 1.0, ema_decay: float = 0.99,
+                 use_ema: bool = False):
+        self.model, self.loss_fn, self.opt = model, loss_fn, opt
+        self.accum_steps = accum_steps
+        self.grad_clip = grad_clip
+        self.ema_decay, self.use_ema = ema_decay, use_ema
+        self.steps = 0
+
+    def __call__(self, images: torch.Tensor, masks: torch.Tensor,
+                 lr: float, mb_mask, ema: Optional[EmaState] = None
+                 ) -> torch.Tensor:
+        """images (A, B, C, H, W) float, masks (A, B, H, W) integer on the
+        model's device; ``mb_mask`` (A,) host values in {0, 1} marking the
+        real microbatches. Updates the model, the optimizer and ``ema``
+        in place; returns the sum of the real microbatches' losses as a
+        device scalar."""
+        model, params = self.model, [p for p in self.model.parameters()]
+        model.train()
+        self.opt.zero_grad(set_to_none=True)
+        loss_sum = torch.zeros((), device=images.device)
+        for a in range(images.shape[0]):
+            if not mb_mask[a]:
+                continue  # padded microbatch: no forward, BN stats untouched
+            loss = self.loss_fn(model(images[a]), masks[a])
+            loss.backward()
+            loss_sum = loss_sum + loss.detach()
+        with torch.no_grad():
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                p.grad.div_(self.accum_steps)
+            if self.grad_clip and self.grad_clip > 0:
+                clip_by_global_norm([p.grad for p in params], self.grad_clip)
+        for group in self.opt.param_groups:
+            group['lr'] = lr
+        self.opt.step()
+        self.steps += 1
+        if self.use_ema and ema is not None:
+            ema_update(ema, model, self.ema_decay)
+        return loss_sum
+
+
+def make_train_step(model: nn.Module, loss_fn: Callable,
+                    opt: torch.optim.Optimizer, accum_steps: int,
+                    ema_decay: float = 0.99, use_ema: bool = False,
+                    grad_clip: float = 1.0) -> TrainStep:
+    """The super-batch train step:
+    ``step(images, masks, lr, mb_mask, ema=None) -> loss_sum``. Sums the
+    grads of the real microbatches, divides by ``accum_steps`` (not by
+    the count of real ones, as the reference's leftover flush does),
+    clips to ``grad_clip`` by global norm (0 disables), runs AdamW at
+    ``lr`` and, with ``use_ema``, updates ``ema``."""
+    return TrainStep(model, loss_fn, opt, accum_steps, grad_clip=grad_clip,
+                     ema_decay=ema_decay, use_ema=use_ema)
+
+
+def make_eval_step(model: nn.Module, loss_fn: Callable, num_classes: int,
+                   with_weights: bool = False) -> Callable:
+    """``eval_step(images, masks) -> (loss, confusion_matrix)`` in eval
+    mode, both on the device. ``with_weights=True`` adds a per-sample
+    weight vector: weight-0 rows (padding) count in neither the loss nor
+    the confusion matrix."""
+
+    @torch.inference_mode()
+    def eval_step(images: torch.Tensor, masks: torch.Tensor):
+        model.eval()
+        logits = model(images)
+        return (loss_fn(logits, masks),
+                confusion_matrix_update(logits, masks, num_classes))
+
+    @torch.inference_mode()
+    def eval_step_weighted(images: torch.Tensor, masks: torch.Tensor,
+                           weights: torch.Tensor):
+        model.eval()
+        logits = model(images)
+        loss = loss_fn(logits, masks, sample_weights=weights)
+        # weight-0 rows -> target -1, which confusion_matrix_update drops
+        gated = torch.where(weights[:, None, None] > 0, masks.long(),
+                            torch.full_like(masks, -1, dtype=torch.long))
+        return loss, confusion_matrix_update(logits, gated, num_classes)
+
+    return eval_step_weighted if with_weights else eval_step
+
+
+def group_into_superbatches(n_batches: int, accum_steps: int
+                            ) -> Iterator[Tuple[int, int]]:
+    """(start, count) groups covering n_batches in chunks of
+    accum_steps; the last may be shorter (the leftover flush)."""
+    for start in range(0, n_batches, accum_steps):
+        yield start, min(accum_steps, n_batches - start)

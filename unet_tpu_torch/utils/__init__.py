@@ -1,1 +1,1 @@
-"""Checkpoint and weight-mapping helpers."""
+"""Config, checkpoint and weight-mapping helpers."""

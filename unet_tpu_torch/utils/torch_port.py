@@ -95,8 +95,7 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
                     arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
                 else:                          # Conv2d: (O, I, kh, kw)
                     arr = arr.transpose(3, 2, 0, 1)
-            out[f'{prefix}.{_LEAF[leaf]}'] = torch.from_numpy(
-                np.ascontiguousarray(arr))
+            out[f'{prefix}.{_LEAF[leaf]}'] = torch.from_numpy(np.array(arr))
             if coll == 'batch_stats' and leaf == 'mean':
                 out[f'{prefix}.num_batches_tracked'] = torch.tensor(
                     0, dtype=torch.long)
