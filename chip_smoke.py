@@ -18,17 +18,32 @@ Phases (any failure raises and exits non-zero, printing no result):
    weights from a seed and calibrated BatchNorm statistics: the fused
    gate launches 4 kernels per forward, and its logits match the same
    weights with the fused gate off;
-4. the serving path: ``create_server`` serving that model (saved as a
+4. the 3x3 conv kernel at all 17 convs of that model with Cin, Cout >=
+   64 (the guard refuses the 1->64 stem), on the model's own weights and
+   captured activations: 17 counted forward launches at batch 8 and 17
+   data-gradient launches at batch 4; each held against its plain
+   version in bf16 and f32, the fused BN+ReLU epilogue against the
+   module route, dk against F.conv2d's autograd; times beside the bound
+   and cuDNN's;
+5. the serving path: ``create_server`` serving that model (saved as a
    reference-format .pt) to concurrent HTTP clients, with the gate
    kernel's launch count read around the run;
-5. the training path: ``unet_tpu_torch.cli.train`` on
+6. the directory predict CLI on 40 synthetic PNGs of mixed sizes and a
+   corrupt one, with the fused gate on (4 gate launches per chunk), a
+   threshold sweep and overlays, masks held against the direct pipeline;
+7. the training path: ``unet_tpu_torch.cli.train`` on
    ``configs/lung_tumor.yaml`` as written (bf16, batch 4 x accumulation
    8, augmentation on) on 20 synthetic volumes for 2 epochs, from random
    weights of a seed, with the warp kernel's launch count read around
    the run (one per super-batch); every loss finite, the weights moved,
    and the saved ``weights/last/model.pt`` serves a 512^2 slice through
    ``cli/predict.load_model``; then the same run with augmentation off;
-6. times (CUDA events) of each kernel beside its bound and plain version,
+8. ``--resume`` of that run to a third epoch with ``--profile-dir``
+   (epoch 3, one warp launch per super-batch, the trace names the warp
+   kernel, plots drawn or skipped with one line);
+9. the overfit CLI (``--synthetic --model attention_unet`` at its
+   defaults) must PASS;
+10. times (CUDA events) of each kernel beside its bound and plain version,
    of the model forward, of serving, of the augmentation program and of
    one optimizer step (8 microbatches forward and backward, clip, AdamW).
 
@@ -37,9 +52,11 @@ The line before the last lists the kernels as JSON, and the last line is
 available. Imports nothing of JAX or of the JAX package.
 """
 
+import glob
 import http.client
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -90,6 +107,26 @@ TRAIN_SUPERBATCHES = 4   # 16 train volumes x 4 slices / 32, two epochs
 # once in the same order, so images must be bit-identical; if they are
 # not, the ULP histogram is printed and images are held to 2 ULP
 WARP_MAX_ULP = 2
+# the 3x3 conv kernel: every 3x3 conv of AttentionUNet-64 with Cin and
+# Cout >= 64 (the 1->64 stem stays on cuDNN). Kernel vs plain: float32 at
+# the JAX golden tests' 1e-4 (tests/test_pallas_conv.py:43); bfloat16 and
+# the data gradient to one bf16 step of the larger value, plus 1e-3 of
+# the conv's largest |value|: both sum exact products in f32 and round
+# once, so they differ by the f32 sums' order (and the tensor cores'
+# accumulation), which moves a value by one step at most except near
+# zero, where the terms cancel and that f32 difference, which scales with
+# the terms, exceeds a bf16 step of the tiny result. The
+# weight gradient (cuDNN in both routes, float32) is held to 1e-3 of the
+# largest |dk|: 1e-3 as tests/test_pallas_conv.py:73, relative because dk
+# sums 4 x 512^2 products here. The fused BN+ReLU epilogue is held as the
+# gate is: its error against the float32 module route may exceed the bf16
+# module route's by at most 25%.
+N_CONVS = 17
+CONV_BATCH_BWD = 4
+CONV_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+CONV_BF16_ATOL = 1e-3
+CONV_DK_TOL = 1e-3
+CONV_EPILOGUE_TOL = MODEL_TOL_BF16
 
 
 def log(*a):
@@ -371,6 +408,240 @@ def check_model(card):
     return model, x
 
 
+# ---------------------------------------------------------------- conv3x3
+
+def bf16_step(a, b):
+    """One bf16 step (unit in the last place) at the larger magnitude of
+    a and b, elementwise: for |v| in [2^(e-1), 2^e) it is 2^(e-8)."""
+    import torch
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return torch.ldexp(torch.ones_like(a), e - 8)
+
+
+def within_one_step(got, want):
+    """(holds, share of elements that differ, max |got - want|, elements
+    beyond one bf16 step) for two bf16 tensors compared in f32: each
+    element within one bf16 step of the larger value plus CONV_BF16_ATOL
+    times the largest |want|."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    step = bf16_step(g, w)
+    atol = CONV_BF16_ATOL * w.abs().max()
+    return (bool((d <= step + atol).all()),
+            (d > 0).float().mean().item(), d.max().item(),
+            int((d > step).sum()))
+
+
+def capture_convs(model, x):
+    """The input of every 3x3 conv of one forward of model on x, with the
+    conv and the BatchNorm that follows it in its DoubleConv:
+    [(name, conv, bn, input)], inputs in channels_last."""
+    import torch
+    from unet_tpu_torch.models.layers import Conv2d
+    mods = dict(model.named_modules())
+    found, handles = [], []
+    for name, m in model.named_modules():
+        if isinstance(m, Conv2d) and m.kernel_size == (3, 3):
+            parent, idx = name.rsplit('.', 1)
+            bn = mods[parent][int(idx) + 1]
+
+            def hook(mod, inputs, name=name, bn=bn):
+                found.append((name, mod, bn, inputs[0].detach().contiguous(
+                    memory_format=torch.channels_last)))
+            handles.append(m.register_forward_pre_hook(hook))
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return found
+
+
+def conv_bound(n, h, w, cin, cout, itemsize=2, passes=1):
+    """Least time for ``passes`` convs of this shape in bf16: input,
+    output and weights moved once each, or 2*9*Cin*Cout flops per output
+    pixel at the tensor cores' peak; returns (ms, bytes, flops)."""
+    nbytes = passes * (n * h * w * (cin + cout) + 9 * cin * cout) * itemsize
+    flops = passes * 2 * 9 * cin * cout * n * h * w
+    return (max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS['bfloat16'])
+            * 1e3, nbytes, flops)
+
+
+def check_convs(model, x, card):
+    """The conv kernel at every 3x3 conv of AttentionUNet-64 with Cin and
+    Cout >= 64, on the calibrated model's own weights and activations at
+    BATCH x IMG^2 bf16: the counted run (forward at BATCH, data gradient
+    at CONV_BATCH_BWD), then each against its plain version, the epilogue
+    against the module route, and times."""
+    import torch
+    import torch.nn.functional as F
+    from unet_tpu_torch.ops import conv3x3 as cv
+    cl = torch.channels_last
+    found = capture_convs(model, x)
+    convs = [c for c in found if c[1].in_channels >= 64]
+    stems = [c for c in found if c[1].in_channels < 64]
+    assert len(convs) == N_CONVS and len(stems) == 1, (len(convs),
+                                                       len(stems))
+    for _, conv, _, inp in stems:
+        assert not cv.igemm_shapes_supported(
+            tuple(inp.shape), (3, 3, conv.in_channels, conv.out_channels))
+    ks = [conv.weight.detach().permute(2, 3, 1, 0).contiguous()
+          for _, conv, _, _ in convs]  # (3, 3, Cin, Cout) float32
+    for (_, _, _, inp), k in zip(convs, ks):
+        assert cv.igemm_shapes_supported(tuple(inp.shape), tuple(k.shape))
+    log(f'conv3x3: the guard takes all {N_CONVS} convs of AttentionUNet-'
+        f'{BASE} with Cin, Cout >= 64 and refuses the 1->{BASE} stem: '
+        + ', '.join(f'{inp.shape[2]}^2 {c.in_channels}->{c.out_channels}'
+                    for _, c, _, inp in convs))
+
+    # graphs for the data gradient at the training microbatch, built
+    # before the counted run
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    bwd = []
+    for (_, _, _, inp), k in zip(convs, ks):
+        xb = inp[:CONV_BATCH_BWD].clone().requires_grad_(True)
+        kb = k.clone().requires_grad_(True)
+        y = cv.conv3x3(xb, kb)
+        up = torch.randn(y.shape, generator=gen, device=DEVICE).to(
+            y.dtype).contiguous(memory_format=cl)
+        bwd.append((xb, kb, y, up))
+    sync()
+
+    # the counted run: one forward of each conv at BATCH, then the data
+    # gradient of each at CONV_BATCH_BWD
+    cv.launch_count = 0
+    with torch.no_grad():
+        outs = [cv.conv3x3(inp, k) for (_, _, _, inp), k in zip(convs, ks)]
+    sync()
+    fwd_launches = cv.launch_count
+    for xb, kb, y, up in bwd:
+        y.backward(up)
+    sync()
+    launches = cv.launch_count
+    log(f'conv3x3: {fwd_launches} kernel launches for the {N_CONVS} '
+        f'forwards (b{BATCH}), {launches - fwd_launches} for their data '
+        f'gradients (b{CONV_BATCH_BWD})')
+    assert fwd_launches == N_CONVS and launches == 2 * N_CONVS, (
+        fwd_launches, launches)
+
+    # each against its plain version, the epilogue against the module
+    # route, the weight gradient against F.conv2d's autograd (uncounted)
+    max_err = 0.0
+    for (name, conv, bn, inp), k, out, (xb, kb, _, up) in zip(convs, ks,
+                                                              outs, bwd):
+        with torch.no_grad():
+            ok, share, err, beyond = within_one_step(
+                out, cv.conv3x3_plain(inp, k))
+            max_err = max(max_err, err)
+            xf = inp.float()
+            got32 = cv.conv3x3(xf, k)
+            want32 = cv.conv3x3_plain(xf, k)
+            err32 = (got32 - want32).abs().max().item()
+            torch.testing.assert_close(got32, want32, **CONV_F32_TOL)
+            del got32, want32
+            mul, add = cv.fold_bn_scale_shift(bn.weight, bn.bias,
+                                              bn.running_mean,
+                                              bn.running_var, bn.eps)
+            fused = cv.conv3x3_bn_relu(inp, k, mul, add).float()
+            module = torch.relu(bn(conv(inp))).float()
+            ref = torch.relu(bn(conv(xf))).float()
+            scale = ref.abs().max().item()
+            e_fused = (fused - ref).abs() / scale
+            e_module = (module - ref).abs() / scale
+            del fused, module, ref, xf
+        kt = k.flip(0, 1).transpose(2, 3)
+        dx_ok, dx_share, dx_err, dx_beyond = within_one_step(
+            xb.grad, cv.conv3x3_plain(up, kt))
+        x32 = inp[:CONV_BATCH_BWD].float().requires_grad_(True)
+        k32 = k.clone().requires_grad_(True)
+        cv.conv3x3(x32, k32).backward(up.float())
+        kr = k.clone().requires_grad_(True)
+        F.conv2d(inp[:CONV_BATCH_BWD].float(), kr.permute(3, 2, 0, 1),
+                 padding=1).backward(up.float())
+        dk_err = ((k32.grad - kr.grad).abs().max()
+                  / kr.grad.abs().max()).item()
+        log(f'conv3x3 {name} {inp.shape[2]}^2 {conv.in_channels}->'
+            f'{conv.out_channels}: bf16 held {ok} ({share:.4%} of elements '
+            f'differ, {beyond} by more than one bf16 step, max |kernel - '
+            f'plain| {err:.3g}); f32 max |kernel - plain| {err32:.3g}; '
+            f'epilogue vs f32 module route max/mean '
+            f'{e_fused.max().item():.3g}/{e_fused.mean().item():.3g} (bf16 '
+            f'module route {e_module.max().item():.3g}/'
+            f'{e_module.mean().item():.3g}); dx held {dx_ok} '
+            f'({dx_share:.4%} differ, {dx_beyond} beyond one step, max '
+            f'{dx_err:.3g}); f32 dk max |diff| / max |dk| {dk_err:.3g}')
+        assert ok and dx_ok, name
+        assert dk_err <= CONV_DK_TOL, name
+        for stat in (torch.max, torch.mean):
+            assert (stat(e_fused).item()
+                    <= CONV_EPILOGUE_TOL * stat(e_module).item()), name
+        del x32, k32, kr
+    del outs, bwd
+
+    # times: each conv at BATCH (forward), and the fwd + dx pair at
+    # CONV_BATCH_BWD, kernel / plain / library (cuDNN), L2 flushed
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEVICE)
+    total = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0, 'bound_ms': 0.0,
+             'bytes': 0, 'flops': 0}
+    pair = dict(total)
+    for (name, conv, _, inp), k in zip(convs, ks):
+        n, cin, h, w = inp.shape
+        cout = k.shape[3]
+        # weights cast once, outside the timed calls; cuDNN gets them in
+        # channels_last, its own preferred layout (conv3x3_reference's
+        # F.conv2d call)
+        kb = k.to(torch.bfloat16)
+        ktb = k.flip(0, 1).transpose(2, 3).to(torch.bfloat16).contiguous()
+        wcl = conv.weight.detach().to(torch.bfloat16).contiguous(
+            memory_format=cl)
+        with torch.no_grad():
+            t_k = time_ms(lambda: cv.conv3x3(inp, kb), 5, flush)
+            t_p = time_ms(lambda: cv.conv3x3_plain(inp, kb), 2, flush)
+            t_l = time_ms(lambda: F.conv2d(inp, wcl, padding=1), 5, flush)
+            x4 = inp[:CONV_BATCH_BWD]
+            g4 = torch.randn(CONV_BATCH_BWD, cout, h, w, device=DEVICE).to(
+                torch.bfloat16).contiguous(memory_format=cl)
+            p_k = time_ms(lambda: (cv.conv3x3(x4, kb), cv.conv3x3(g4, ktb)),
+                          5, flush)
+            p_p = time_ms(lambda: (cv.conv3x3_plain(x4, kb),
+                                   cv.conv3x3_plain(g4, ktb)), 2, flush)
+            p_l = time_ms(lambda: (F.conv2d(x4, wcl, padding=1),
+                                   torch.nn.grad.conv2d_input(
+                                       x4.shape, wcl, g4, padding=1)),
+                          5, flush)
+        bound, nbytes, flops = conv_bound(n, h, w, cin, cout)
+        pbound, pbytes, pflops = conv_bound(CONV_BATCH_BWD, h, w, cin, cout,
+                                            passes=2)
+        log(f'TIME conv3x3 {name} b{n} {h}^2 {cin}->{cout} bf16: kernel '
+            f'{t_k:.4f} ms, plain {t_p:.4f} ms, cuDNN {t_l:.4f} ms, bound '
+            f'{bound:.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} '
+            f'GFLOP; {flops / t_k / 1e9:.1f} TFLOP/s, roofline share '
+            f'{bound / t_k:.1%}); fwd+dx b{CONV_BATCH_BWD}: kernel '
+            f'{p_k:.4f} ms, plain {p_p:.4f} ms, cuDNN {p_l:.4f} ms, bound '
+            f'{pbound:.4f} ms  [{card}]')
+        for acc, vals in ((total, (t_k, t_p, t_l, bound, nbytes, flops)),
+                          (pair, (p_k, p_p, p_l, pbound, pbytes, pflops))):
+            for key, v in zip(('ms', 'plain_ms', 'library_ms', 'bound_ms',
+                               'bytes', 'flops'), vals):
+                acc[key] += v
+    del flush
+    for label, acc in ((f'forward b{BATCH}', total),
+                       (f'fwd+dx b{CONV_BATCH_BWD}', pair)):
+        t_bytes = acc['bytes'] / HBM_BYTES_PER_S * 1e3
+        t_ops = acc['flops'] / PEAK_FLOPS['bfloat16'] * 1e3
+        acc['bound_by'] = 'bytes' if t_bytes >= t_ops else 'operations'
+        log(f'TIME conv3x3 all {N_CONVS} convs, {label} bf16: kernel '
+            f'{acc["ms"]:.3f} ms, plain {acc["plain_ms"]:.3f} ms, cuDNN '
+            f'{acc["library_ms"]:.3f} ms, bound {acc["bound_ms"]:.3f} ms '
+            f'(sum of per-conv bounds; {acc["bytes"] / 1e9:.2f} GB over '
+            f'{t_bytes:.3f} ms, {acc["flops"] / 1e12:.2f} TFLOP over '
+            f'{t_ops:.3f} ms), roofline share '
+            f'{acc["bound_ms"] / acc["ms"]:.1%}  [{card}]')
+    total.update(launches=launches, max_abs_err=max_err)
+    return total
+
+
 # ---------------------------------------------------------------- serve
 
 def _request(addr, method, path, body=None):
@@ -531,6 +802,134 @@ def serve_main_path(model, card):
         server.server_close()
 
 
+# ---------------------------------------------------------------- predict
+
+PREDICT_SIZES = [(512, 512), (400, 300), (256, 256), (600, 520), (512, 384),
+                 (333, 517), (128, 200), (700, 700), (128, 128), (640, 480)]
+PREDICT_IMAGES = 40
+PREDICT_THRESHOLDS = (0.3, 0.5, 0.7)
+
+
+def predict_path(model, card):
+    """The directory predict CLI on the card: PREDICT_IMAGES synthetic
+    PNGs of mixed sizes plus one corrupt file, a .pt whose config turns
+    the fused gate on, a threshold sweep and overlays. Every mask and
+    sweep file is written, the corrupt file skipped, the masks equal the
+    direct pipeline except pixels within 1e-3 of a threshold, and the gate
+    kernel runs 4 times per chunk dispatched."""
+    import torch
+    from PIL import Image
+    from unet_tpu_torch.cli import predict as predict_cli
+    from unet_tpu_torch.ops import attention_gate as ag
+    from unet_tpu_torch.ops.bitpack import unpack_masks_host
+    from unet_tpu_torch.train.trainer import (make_predict_masks_step,
+                                              make_predict_step_u8)
+
+    cfg = {'model': {'type': 'attention_unet', 'n_channels': 1,
+                     'n_classes': 2, 'bilinear': True,
+                     'base_features': BASE, 'deep_supervision': False},
+           'tpu': {'compute_dtype': 'bfloat16',
+                   'fused_attention_gate': True}}
+    rng = np.random.default_rng(13)
+    with tempfile.TemporaryDirectory() as tmp:
+        pt = f'{tmp}/attention_unet64.pt'
+        _save_pt(model, cfg, pt)
+        src = f'{tmp}/slices'
+        out = f'{tmp}/predictions'
+        os.makedirs(src)
+        stems = []
+        for i in range(PREDICT_IMAGES):
+            h, w = PREDICT_SIZES[i % len(PREDICT_SIZES)]
+            stems.append(f'slice_{i:03d}')
+            Image.fromarray(_image(rng, h, w)).save(f'{src}/{stems[-1]}.png')
+        # sorted between slice_017 and slice_018: its chunk is padded
+        with open(f'{src}/slice_017_corrupt.png', 'wb') as f:
+            f.write(b'\x89PNG\r\n\x1a\nnot a real png')
+        argv = ['--weights', pt, '--source', src, '--output', out,
+                '--img-size', str(IMG), '--batch-size', str(BATCH),
+                '--threshold', ','.join(map(str, PREDICT_THRESHOLDS)),
+                '--save-overlay']
+        if DEVICE == 'cpu':
+            argv += ['--device', 'cpu']
+        ag.launch_count = 0
+        summary = predict_cli.main(argv)
+        launches = ag.launch_count
+        chunks = summary['chunks']
+        log(f'predict: {summary["processed"]}/{summary["files"]} images in '
+            f'{chunks} chunks, skipped {summary["skipped"]}, {launches} gate '
+            f'kernel launches')
+        assert launches == 4 * chunks, (launches, chunks)
+        assert chunks == -(-(PREDICT_IMAGES + 1) // BATCH)
+        assert summary['processed'] == PREDICT_IMAGES
+        assert [os.path.basename(p) for p in summary['skipped']] == [
+            'slice_017_corrupt.png']
+        want = {f'{s}{suffix}' for s in stems for suffix in
+                ['_mask.png', '_overlay.png']
+                + [f'_mask_t{t:g}.png' for t in PREDICT_THRESHOLDS[1:]]}
+        assert set(os.listdir(out)) == want, sorted(
+            set(os.listdir(out)) ^ want)[:5]
+
+        # the direct pipeline on the same weights and the same chunks as
+        # the CLI (files in order, the corrupt one dropped, the tail
+        # padded by repeating its last image)
+        loaded, _ = predict_cli.load_model(pt, device=DEVICE)
+        masks_step = make_predict_masks_step(loaded)
+        prob_step = make_predict_step_u8(loaded)
+        thr = torch.tensor(PREDICT_THRESHOLDS, device=DEVICE)
+        suffixes = ['_mask.png'] + [f'_mask_t{t:g}.png'
+                                    for t in PREDICT_THRESHOLDS[1:]]
+        files = [f for f in predict_cli.gather_sources(src)]
+        n_differ = n_near = 0
+        rerun = None
+        for start in range(0, len(files), BATCH):
+            chunk = [f for f in files[start:start + BATCH]
+                     if 'corrupt' not in f.name]
+            dec = [predict_cli.preprocess_image(f, IMG) for f in chunk]
+            xs = [d[0] for d in dec]
+            xs += [xs[-1]] * (BATCH - len(xs))
+            u8 = torch.from_numpy(np.stack(xs)).to(DEVICE)
+            packed = masks_step(u8, thr).cpu().numpy()
+            probs = prob_step(u8)[:, 1].float()
+            if rerun is None:  # is the forward deterministic?
+                rerun = (prob_step(u8)[:, 1].float() - probs).abs().max()
+            probs = probs.cpu().numpy()
+            for i, (f, (_, orig)) in enumerate(zip(chunk, dec)):
+                for t, (suffix, t_val) in enumerate(zip(suffixes,
+                                                        PREDICT_THRESHOLDS)):
+                    direct = predict_cli.restore_mask(
+                        unpack_masks_host(packed[t, i], IMG)
+                        * np.uint8(255), orig)
+                    got = np.asarray(Image.open(f'{out}/{f.stem}{suffix}'))
+                    gap = np.abs(probs[i] - t_val)
+                    near = np.asarray(Image.fromarray(
+                        (gap < 1e-3).astype(np.uint8)).resize(
+                            orig, Image.NEAREST)) > 0
+                    differ = got != direct
+                    n_differ += int(differ.sum())
+                    n_near += int(near.sum())
+                    if (differ & ~near).any():
+                        log(f'predict: {f.name}{suffix}: '
+                            f'{int((differ & ~near).sum())} px differ away '
+                            f'from the threshold; the same forward run '
+                            f'twice differs by {rerun.item():.3g} in '
+                            f'probability')
+                    assert not (differ & ~near).any(), (f.name, suffix)
+        log(f'predict: masks of all {len(suffixes)} thresholds equal the '
+            f'direct pipeline on the same chunks except {n_differ} px, all '
+            f'within 1e-3 of the threshold ({n_near} px are); the same '
+            f'forward run twice differs by {rerun.item():.3g} in '
+            f'probability')
+    st = summary['stage_seconds']
+    log(f'TIME predict {summary["processed"]} slices of mixed sizes at '
+        f'{IMG}^2, batch {BATCH}, {len(PREDICT_THRESHOLDS)} thresholds, '
+        f'overlays: {summary["slices_per_s"]:.2f} slices/s end to end, '
+        f'{summary["steady_slices_per_s"]:.2f} slices/s after the first '
+        f'chunk; stage seconds ' + ', '.join(f'{k} {v:.2f}'
+                                             for k, v in st.items())
+        + f'  [{card}]')
+    return launches
+
+
 # ---------------------------------------------------------------- train
 
 def _save_pt(model, cfg, path):
@@ -549,9 +948,10 @@ def run_train_cli(tmp, name, config_path, init_pt):
     return train_cli.main(argv)
 
 
-def train_main_path(card):
+def train_main_path(card, tmp):
     """The training path: the port's train CLI on the flagship config,
-    the warp kernel's launches counted around the run."""
+    the warp kernel's launches counted around the run. Runs in ``tmp``;
+    returns (launches, the augmentation-on run's directory)."""
     import torch
     import yaml
     from unet_tpu_torch.cli.predict import load_model
@@ -569,56 +969,124 @@ def train_main_path(card):
                         deep_supervision=m['deep_supervision'],
                         generator=torch.Generator().manual_seed(7))
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        init_pt = f'{tmp}/init.pt'
-        _save_pt(init, cfg, init_pt)
-        warp.launch_count = 0
-        t0 = time.perf_counter()
-        hist = run_train_cli(tmp, 'aug_on', TRAIN_CONFIG, init_pt)
-        wall = time.perf_counter() - t0
-        launches = warp.launch_count
-        log(f'train: {TRAIN_CONFIG} (bf16, b4 x accum 8, augmentation on) '
-            f'ran in {wall:.1f} s with {launches} warp kernel launches for '
-            f'{TRAIN_SUPERBATCHES} super-batches; train loss '
-            f'{hist["train_loss"]}, val loss {hist["val_loss"]}')
-        assert launches == TRAIN_SUPERBATCHES, launches
-        assert all(np.isfinite(hist['train_loss'] + hist['val_loss']))
-        last = f'{hist["save_dir"]}/weights/last/model.pt'
-        before = init.state_dict()
-        after, _, _ = load_torch_checkpoint(last)
-        moved = [k for k in before if k.endswith('weight')
-                 and not torch.equal(before[k], after[k])]
-        assert all(torch.isfinite(v.float()).all() for v in after.values())
-        assert len(moved) > 0.9 * sum(k.endswith('weight') for k in before)
-        log(f'train: {len(moved)} weight tensors moved from the initial '
-            f'weights; weights/last/model.pt written')
+    init_pt = f'{tmp}/init.pt'
+    _save_pt(init, cfg, init_pt)
+    warp.launch_count = 0
+    t0 = time.perf_counter()
+    hist = run_train_cli(tmp, 'aug_on', TRAIN_CONFIG, init_pt)
+    wall = time.perf_counter() - t0
+    launches = warp.launch_count
+    log(f'train: {TRAIN_CONFIG} (bf16, b4 x accum 8, augmentation on) '
+        f'ran in {wall:.1f} s with {launches} warp kernel launches for '
+        f'{TRAIN_SUPERBATCHES} super-batches; train loss '
+        f'{hist["train_loss"]}, val loss {hist["val_loss"]}')
+    assert launches == TRAIN_SUPERBATCHES, launches
+    assert all(np.isfinite(hist['train_loss'] + hist['val_loss']))
+    last = f'{hist["save_dir"]}/weights/last/model.pt'
+    before = init.state_dict()
+    after, _, _ = load_torch_checkpoint(last)
+    moved = [k for k in before if k.endswith('weight')
+             and not torch.equal(before[k], after[k])]
+    assert all(torch.isfinite(v.float()).all() for v in after.values())
+    assert len(moved) > 0.9 * sum(k.endswith('weight') for k in before)
+    log(f'train: {len(moved)} weight tensors moved from the initial '
+        f'weights; weights/last/model.pt written')
 
-        model, meta = load_model(last, device=DEVICE)
-        rng = np.random.default_rng(11)
-        u8 = torch.from_numpy(np.array(_image(rng, IMG, IMG)[None, None])).to(
-            DEVICE)
-        prob = make_predict_step_u8(model)(u8)
-        sync()
-        assert prob.shape == (1, 2, IMG, IMG) and torch.isfinite(prob).all()
-        log(f'train: weights/last/model.pt (epoch {meta["epoch"]}) loaded '
-            f'by cli/predict.load_model and segmented a {IMG}^2 slice: '
-            f'{int((prob[0, 1] > 0.5).sum())} tumor px')
-        out['aug_on'] = hist
+    model, meta = load_model(last, device=DEVICE)
+    rng = np.random.default_rng(11)
+    u8 = torch.from_numpy(np.array(_image(rng, IMG, IMG)[None, None])).to(
+        DEVICE)
+    prob = make_predict_step_u8(model)(u8)
+    sync()
+    assert prob.shape == (1, 2, IMG, IMG) and torch.isfinite(prob).all()
+    log(f'train: weights/last/model.pt (epoch {meta["epoch"]}) loaded '
+        f'by cli/predict.load_model and segmented a {IMG}^2 slice: '
+        f'{int((prob[0, 1] > 0.5).sum())} tumor px')
+    out['aug_on'] = hist
 
-        # the same run with augmentation off (not the main path)
-        off = dict(cfg, augmentation=dict(cfg['augmentation'],
-                                          enabled=False))
-        off_path = f'{tmp}/aug_off.yaml'
-        with open(off_path, 'w') as f:
-            yaml.safe_dump(off, f)
-        out['aug_off'] = run_train_cli(tmp, 'aug_off', off_path, init_pt)
+    # the same run with augmentation off (not the main path)
+    off = dict(cfg, augmentation=dict(cfg['augmentation'],
+                                      enabled=False))
+    off_path = f'{tmp}/aug_off.yaml'
+    with open(off_path, 'w') as f:
+        yaml.safe_dump(off, f)
+    out['aug_off'] = run_train_cli(tmp, 'aug_off', off_path, init_pt)
     n_train = 16 * 4
     for k, hist in out.items():
         secs = hist['train_seconds']
         log(f'TIME train {k}: ' + ', '.join(
             f'epoch {i + 1} {n_train / t:.2f} slices/s ({t:.3f} s)'
             for i, t in enumerate(secs)) + f'  [{card}]')
+    return launches, out['aug_on']['save_dir']
+
+
+def resume_path(card, tmp, run_dir):
+    """``--resume`` of the augmentation-on run to a third epoch with
+    ``--profile-dir``: the epoch counter continues at 3, the warp runs
+    once per super-batch of that one epoch, the trace names the warp
+    kernel, and the plots are drawn (or skipped with one line where
+    matplotlib is missing)."""
+    from unet_tpu_torch.cli import train as train_cli
+    from unet_tpu_torch.ops import warp
+    from unet_tpu_torch.utils.plots import SKIP_MESSAGE, have_matplotlib
+    prof = f'{tmp}/profile'
+    argv = ['--config', TRAIN_CONFIG, '--project', tmp, '--name',
+            'aug_on_resumed', '--resume', f'{run_dir}/weights/last',
+            '--profile-dir', prof, *TRAIN_ARGS[:-2], '--epochs', '3']
+    if DEVICE == 'cpu':
+        argv += ['--device', 'cpu']
+    warp.launch_count = 0
+    t0 = time.perf_counter()
+    hist = train_cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = warp.launch_count
+    meta = json.loads(open(f'{hist["save_dir"]}/weights/last/meta.json')
+                      .read())
+    traces = glob.glob(f'{prof}/trace_*.json')
+    # the CUDA kernel's name; a CPU rehearsal has only the ATen ops
+    needle = 'warp_kernel' if DEVICE == 'cuda' else 'aten::'
+    names_warp = bool(traces) and needle in open(traces[0]).read()
+    plots = have_matplotlib()
+    log(f'resume: --resume {run_dir}/weights/last --epochs 3 ran epoch '
+        f'{meta["epoch"] + 1} (optimizer step {meta["step"]}) in {wall:.1f} '
+        f's with {launches} warp kernel launches; train loss '
+        f'{hist["train_loss"]}; profiler trace {traces[0] if traces else None}'
+        f' ({os.path.getsize(traces[0]) / 1e6 if traces else 0:.1f} MB) '
+        f'names the warp kernel: {names_warp}; plots: '
+        + ('training_curves.png and val_predictions.png written' if plots
+           else SKIP_MESSAGE))
+    assert len(hist['train_loss']) == 1 and meta['epoch'] == 2, meta
+    assert launches == TRAIN_SUPERBATCHES // 2, launches
+    assert names_warp
+    assert all(np.isfinite(hist['train_loss'] + hist['val_loss']))
+    if plots:
+        for png in ('training_curves.png', 'val_predictions.png'):
+            assert os.path.getsize(f'{hist["save_dir"]}/{png}') > 0, png
     return launches
+
+
+def overfit_path(card, tmp):
+    """``unet_tpu_torch.cli.overfit --synthetic --model attention_unet``
+    at its defaults (256^2, base 64, 4 samples, 200 epochs): must PASS."""
+    from unet_tpu_torch.cli import overfit
+    argv = ['--synthetic', '--model', 'attention_unet', '--output',
+            f'{tmp}/overfit']
+    if DEVICE == 'cpu':
+        argv += ['--device', 'cpu', '--img-size', str(IMG),
+                 '--base-features', str(BASE), '--samples', '2',
+                 '--epochs', '60']
+    args = overfit.parse_args(argv)
+    t0 = time.perf_counter()
+    res = overfit.run_overfit(args)
+    wall = time.perf_counter() - t0
+    log(f'overfit: {args.model} base {args.base_features} '
+        f'{args.img_size}^2, {len(res["picked"])} samples, {args.epochs} '
+        f'epochs: final tumor Dice {res["final_dice"]:.4f} '
+        f'({"PASS" if res["passed"] else "FAIL"}) in {wall:.1f} s; '
+        f'{args.epochs / wall:.2f} steps/s (train + eval, host clock)  '
+        f'[{card}]')
+    assert res['passed'], res['final_dice']
+    return res
 
 
 # ---------------------------------------------------------------- times
@@ -797,11 +1265,20 @@ def main():
 
     errs = check_gates()
     warp_err = check_warp()
-    model, _ = check_model(card)
+    model, x = check_model(card)
+    tc = check_convs(model, x, card)
+    del x
+    torch.cuda.empty_cache()
     launches = serve_main_path(model, card)
+    predict_path(model, card)
     del model
     torch.cuda.empty_cache()
-    warp_launches = train_main_path(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        warp_launches, run_dir = train_main_path(card, tmp)
+        torch.cuda.empty_cache()
+        resume_path(card, tmp, run_dir)
+        torch.cuda.empty_cache()
+        overfit_path(card, tmp)
     torch.cuda.empty_cache()
     t = time_gates(card, errs)
     tw = time_warp(card, warp_err)
@@ -834,10 +1311,23 @@ def main():
         # function zeroes the whole pixel, and has no nearest-mask tie
         # rule: no single PyTorch call computes the warp
         'library_ms': None,
+    }, {
+        'name': 'conv3x3',
+        'route': 'cuda',
+        'source': 'unet_tpu_torch/csrc/conv3x3.cu',
+        'replaces': 'unet_tpu/ops/pallas/conv3x3.py:174',
+        'launches': tc['launches'],
+        'max_abs_err': tc['max_abs_err'],
+        'ms': tc['ms'],
+        'plain_ms': tc['plain_ms'],
+        'bound_ms': tc['bound_ms'],
+        'bound_by': tc['bound_by'],
+        'library_ms': tc['library_ms'],  # F.conv2d (cuDNN), bf16
     }]
     log(f'(kernel times: the four 512^2 gates of one bf16 forward at batch '
-        f'{BATCH}, summed; the warp of one {SUPER}x{IMG}^2 super-batch; '
-        f'total run {time.perf_counter() - t_start:.1f} s)')
+        f'{BATCH}, summed; the warp of one {SUPER}x{IMG}^2 super-batch; the '
+        f'{N_CONVS} eligible 3x3 convs of one bf16 forward at batch {BATCH}, '
+        f'summed; total run {time.perf_counter() - t_start:.1f} s)')
     log(card)  # as nvidia-smi prints it: name, power limit
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

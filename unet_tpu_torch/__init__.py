@@ -16,14 +16,20 @@ Where each part of ``unet_tpu`` lives here:
                                    -> ops/attention_gate.py + the CUDA
                                       kernel csrc/attention_gate.cu
   unet_tpu/ops/pallas/warp.py      -> ops/warp.py + the CUDA kernel
-                                      csrc/warp.cu (both kernels built
+                                      csrc/warp.cu
+  unet_tpu/ops/pallas/conv3x3.py   -> ops/conv3x3.py + the CUDA kernel
+                                      csrc/conv3x3.cu (forward, data
+                                      gradient, BN+ReLU epilogue; not
+                                      wired into DoubleConv, as in
+                                      unet_tpu; all three kernels built
                                       by ops/_build.py)
   unet_tpu/models/{layers,unet}.py -> models/{layers,unet}.py (train and
                                       eval mode)
   unet_tpu/data/augmentations.py   -> data/augmentations.py (draws split
                                       from the deterministic apply)
   unet_tpu/data/dataset.py         -> data/dataset.py
-  unet_tpu/data/cache.py           -> data/cache.py (native decode only)
+  unet_tpu/data/cache.py           -> data/cache.py (native decode of
+                                      request bodies and of files)
   unet_tpu/train/losses.py         -> train/losses.py
   unet_tpu/train/metrics.py        -> train/metrics.py
   unet_tpu/train/schedules.py      -> train/schedules.py
@@ -31,19 +37,26 @@ Where each part of ``unet_tpu`` lives here:
                                       optax clip rule, train/eval/predict
                                       steps, EMA)
   unet_tpu/train/callbacks.py      -> train/callbacks.py (reference .pt
-                                      checkpoints)
+                                      checkpoints, plus train_state.pt
+                                      for --resume)
   unet_tpu/utils/config.py         -> utils/config.py
   unet_tpu/utils/torch_port.py     -> utils/torch_port.py
-  unet_tpu/cli/predict.py          -> cli/predict.py (model loading and
-                                      pre/postprocessing)
+  unet_tpu/utils/plots.py          -> utils/plots.py (NCHW; matplotlib
+                                      imported at first use)
+  unet_tpu/utils/profiling.py      -> utils/profiling.py (torch.profiler
+                                      traces; nan_guard checks losses)
+  unet_tpu/cli/predict.py          -> cli/predict.py (the directory CLI,
+                                      model loading, pre/postprocessing;
+                                      one GPU)
   unet_tpu/cli/serve.py            -> cli/serve.py (one GPU)
-  unet_tpu/cli/train.py            -> cli/train.py (one GPU)
+  unet_tpu/cli/train.py            -> cli/train.py (one GPU; --resume,
+                                      --profile-dir, plots)
+  unet_tpu/cli/overfit.py          -> cli/overfit.py
 
-Still to port, in order: the 3x3 implicit-GEMM conv kernel
-(ops/pallas/conv3x3.py); the rest of the train CLI (--resume, the slice
-cache of data/cache.py, --profile-dir with utils/profiling.py, the plots
-of utils/plots.py); the directory predict CLI, the overfit and export
-CLIs; multi-GPU (core/mesh.py, core/distributed.py).
+Still to port, in order: the slice cache (data/cache.py's
+CachedSliceDataset and build_cache, the train CLI's --cache); multi-GPU
+(core/mesh.py, core/distributed.py, predict's --spatial-shard); the
+port's bench; the export CLI.
 
 Not ported, because they are TPU lowerings of math ATen/cuDNN already
 do: ops/s2d.py and IncPoolS2D (UNET_TPU_S2D, UNET_TPU_S2D_LEVEL),

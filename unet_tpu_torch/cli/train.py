@@ -12,7 +12,19 @@ Counterpart of ``unet_tpu/cli/train.py``, with its flags and epoch loop:
     microbatches, global-norm clip, AdamW, optional EMA;
   * validation on the device's confusion matrix, the EMA warmup state
     machine, ``last``/``best`` checkpoints in the reference ``.pt``
-    payload, scheduler stepping, early stopping and ``history.json``.
+    payload, scheduler stepping, early stopping and ``history.json``;
+  * ``--resume PATH`` (a ``weights/last`` or ``weights/best`` directory)
+    restores the weights, AdamW state, step counter, epoch, plateau
+    scheduler, EMA shadow and the best-metric tracker, and replays the
+    loader's shuffles and the augmentation step, so the resumed epochs
+    see the data an uninterrupted run would; ``--resume auto`` continues
+    the newest run of the experiment in its own directory, or starts
+    fresh when there is none;
+  * ``--profile-dir DIR`` writes a ``torch.profiler`` Chrome trace of the
+    first epoch's training into DIR;
+  * at the end, ``training_curves.png`` and ``val_predictions.png``
+    (the best weights on up to 8 validation slices with tumor), or one
+    line saying the plots were skipped where matplotlib is missing.
 
 Runs on CUDA unless ``--device cpu`` (or ``device: cpu`` in the config)
 asks for the CPU; where CUDA is asked for and absent it raises.
@@ -20,8 +32,8 @@ asks for the CPU; where CUDA is asked for and absent it raises.
     python -m unet_tpu_torch.cli.train --config configs/lung_tumor.yaml \\
         --synthetic --epochs 2
 
-``--resume``, ``--cache``, ``--profile-dir`` and the multi-host flags
-are not ported yet: each stops argument parsing with a message.
+``--cache`` and the multi-host flags are not ported yet: each stops
+argument parsing with a message.
 """
 
 from __future__ import annotations
@@ -36,9 +48,7 @@ import numpy as np
 import torch
 
 NOT_PORTED = {
-    '--resume': 'resuming a run',
     '--cache': 'the slice cache',
-    '--profile-dir': 'profiler traces',
     '--coordinator': 'multi-host training',
     '--num-processes': 'multi-host training',
     '--process-id': 'multi-host training',
@@ -62,6 +72,10 @@ def parse_args(argv=None):
     p.add_argument('--workers', type=int, default=None)
     p.add_argument('--epochs', type=int, default=None)
     p.add_argument('--lr', type=float, default=None)
+    p.add_argument('--resume', type=str, default=None,
+                   help='checkpoint dir to resume (e.g. runs/exp/weights/'
+                        'last), or "auto" for the newest run of this '
+                        'experiment')
     p.add_argument('--init-weights', type=str, default=None,
                    help='initialize the model from a reference-format .pt '
                         '(optimizer, scheduler and epoch start fresh)')
@@ -79,6 +93,9 @@ def parse_args(argv=None):
                    metavar='MIN,MAX',
                    help='synthetic dataset: tumor radius range as a '
                         'fraction of img_size (default 0.02,0.05)')
+    p.add_argument('--profile-dir', type=str, default=None,
+                   help='write a torch.profiler trace of the first epoch '
+                        'here')
     p.add_argument('--debug-nans', action='store_true',
                    help='fail on the first non-finite loss (reads each '
                         'super-batch loss back, which syncs)')
@@ -129,13 +146,15 @@ def main(argv=None):
     from unet_tpu_torch.train.losses import create_loss_function
     from unet_tpu_torch.train.metrics import SegmentationMetrics
     from unet_tpu_torch.train.schedules import create_scheduler
-    from unet_tpu_torch.train.trainer import (create_optimizer, ema_reinit,
-                                              make_eval_step,
+    from unet_tpu_torch.train.trainer import (EmaState, create_optimizer,
+                                              ema_reinit, make_eval_step,
                                               make_train_step)
     from unet_tpu_torch.utils.config import (describe_devices,
                                              get_nested_metric,
                                              increment_path, load_config,
                                              set_seed, validate_config)
+    from unet_tpu_torch.utils import plots
+    from unet_tpu_torch.utils.profiling import nan_guard, trace
     from unet_tpu_torch.utils.torch_port import load_torch_checkpoint
 
     config = apply_overrides(load_config(args.config), args)
@@ -145,8 +164,30 @@ def main(argv=None):
     set_seed(seed)
     print(f'Using device: {describe_devices(device)}')
 
-    save_dir = increment_path(Path(config['output']['save_dir'])
-                              / config['output']['experiment_name'])
+    guard = nan_guard(args.debug_nans)
+
+    # ---- resume target: resolved before the run directory, since
+    # `--resume auto` continues inside the newest existing run ----
+    resume_path = args.resume
+    auto_run_dir = None
+    if resume_path == 'auto':
+        found = CheckpointManager.find_auto_resume(
+            config['output']['save_dir'],
+            config['output']['experiment_name'])
+        if found is None:
+            print('--resume auto: no previous checkpoint found, starting '
+                  'fresh')
+            resume_path = None
+        else:
+            resume_path = str(found)
+            auto_run_dir = found.parent.parent
+            print(f'--resume auto: continuing {auto_run_dir}')
+    if resume_path and Path(resume_path).is_file():  # .../model.pt
+        resume_path = str(Path(resume_path).parent)
+
+    save_dir = auto_run_dir or increment_path(
+        Path(config['output']['save_dir'])
+        / config['output']['experiment_name'])
     weights_dir = save_dir / 'weights'
     weights_dir.mkdir(parents=True, exist_ok=True)
     print(f'Results will be saved to: {save_dir}')
@@ -263,10 +304,41 @@ def main(argv=None):
     metrics = SegmentationMetrics(n_classes, ['background', 'tumor'])
     print(f'Monitoring metric: {monitor}')
 
+    # ---- resume ----
+    start_epoch = 0
+    aug_step = 0
+    if resume_path:
+        print(f'Resuming from {resume_path}')
+        ckpt = CheckpointManager.load(resume_path)
+        meta, ts = ckpt['meta'], ckpt['train_state']
+        model.load_state_dict(ts['model_state_dict'], strict=True)
+        opt.load_state_dict(ckpt['payload']['optimizer_state_dict'])
+        if use_ema and ts.get('ema') is not None:
+            e = ts['ema']
+            ema = EmaState(
+                params={k: v.to(device) for k, v in e['params'].items()},
+                buffers={k: v.to(device) for k, v in e['buffers'].items()},
+                updates=int(e['updates']))
+        train_step.steps = int(meta.get('step') or 0)
+        if meta.get('scheduler') and sched_kind == 'plateau':
+            scheduler.load_state_dict(meta['scheduler'])
+        start_epoch = int(meta.get('epoch', -1)) + 1
+        aug_step = int(ts.get('aug_step', 0))
+        train_loader.skip_epochs(start_epoch)
+        print(f'Resumed from epoch {start_epoch} (optimizer step '
+              f'{train_step.steps})')
+        # seed the best-tracker from the run's best checkpoint, so a
+        # post-resume epoch cannot demote a better pre-resume 'best'
+        best_dir = Path(resume_path).parent / 'best'
+        if (best_dir / 'meta.json').exists():
+            prev = CheckpointManager.read_meta(best_dir)
+            if prev.get('monitor_value') is not None:
+                checkpoint.best_value = prev['monitor_value']
+                checkpoint.best_epoch = prev.get('epoch', -1)
+
     history = {k: [] for k in ('train_loss', 'val_loss', 'val_dice',
                                'val_iou', 'val_accuracy', 'tumor_dice',
                                'lr')}
-    aug_step = 0
     train_seconds = []
 
     def run_validation(step_fn):
@@ -308,44 +380,46 @@ def main(argv=None):
 
     print('\nStarting training...')
     print('=' * 60)
-    for epoch in range(epochs):
+    for epoch in range(start_epoch, epochs):
         lr = scheduler(epoch) if sched_kind == 'epoch' else scheduler.lr
         print(f'\nEpoch {epoch + 1}/{epochs} (lr={lr:.2e})')
         t0 = time.time()
+        profiling = bool(args.profile_dir) and epoch == start_epoch
+        with trace(args.profile_dir if profiling else None):
+            loss_sums, n_micro = [], 0
+            mb_queue = []
 
-        loss_sums, n_micro = [], 0
-        mb_queue = []
+            def device_stream():
+                for imgs, msks, mb in superbatches():
+                    mb_queue.append(mb)
+                    yield imgs, msks
 
-        def device_stream():
-            for imgs, msks, mb in superbatches():
-                mb_queue.append(mb)
-                yield imgs, msks
-
-        for imgs, msks in prefetch_to_device(device_stream(), device):
-            mb = mb_queue.pop(0)
-            n_micro += int(mb.sum())
-            a, b = imgs.shape[:2]
-            imgs = imgs.float() / 255.0
-            if augment_enabled:
-                flat_i, flat_m = augment_batch_seeded(
-                    imgs.reshape(a * b, *imgs.shape[2:]),
-                    msks.reshape(a * b, *msks.shape[2:]), seed + 1,
-                    aug_step, aug_cfg)
-                aug_step += 1
-                imgs = flat_i.reshape(imgs.shape)
-                msks = flat_m.reshape(msks.shape)
-            else:
-                imgs = normalize_batch(imgs)
-            loss_sum = train_step(imgs, msks, lr, mb, ema)
-            if args.debug_nans and not torch.isfinite(loss_sum):
-                raise FloatingPointError(
-                    f'non-finite loss at epoch {epoch + 1}, optimizer step '
-                    f'{train_step.steps}')
-            loss_sums.append(loss_sum)
-        train_loss = (sum(torch.stack(loss_sums).tolist()) if loss_sums
-                      else 0.0) / max(n_micro, 1)
-        train_dt = time.time() - t0  # tolist() above waited for the steps
-        train_seconds.append(train_dt)
+            for imgs, msks in prefetch_to_device(device_stream(), device):
+                mb = mb_queue.pop(0)
+                n_micro += int(mb.sum())
+                a, b = imgs.shape[:2]
+                imgs = imgs.float() / 255.0
+                if augment_enabled:
+                    flat_i, flat_m = augment_batch_seeded(
+                        imgs.reshape(a * b, *imgs.shape[2:]),
+                        msks.reshape(a * b, *msks.shape[2:]), seed + 1,
+                        aug_step, aug_cfg)
+                    aug_step += 1
+                    imgs = flat_i.reshape(imgs.shape)
+                    msks = flat_m.reshape(msks.shape)
+                else:
+                    imgs = normalize_batch(imgs)
+                loss_sum = train_step(imgs, msks, lr, mb, ema)
+                guard.check_finite(loss_sum, f'loss at epoch {epoch + 1}, '
+                                   f'optimizer step {train_step.steps}')
+                loss_sums.append(loss_sum)
+            train_loss = (sum(torch.stack(loss_sums).tolist()) if loss_sums
+                          else 0.0) / max(n_micro, 1)
+            train_dt = time.time() - t0  # tolist() waited for the steps
+            train_seconds.append(train_dt)
+        if profiling:
+            print(f'  profiler trace of epoch {epoch + 1} written to '
+                  f'{args.profile_dir}')
 
         # ---- EMA warmup state machine ----
         use_ema_for_val = use_ema and epoch >= ema_warmup_epochs
@@ -385,9 +459,14 @@ def main(argv=None):
 
         sched_state = (scheduler.state_dict() if sched_kind == 'plateau'
                        else None)
+        ema_state = (None if ema is None else
+                     {'params': ema.params, 'buffers': ema.buffers,
+                      'updates': ema.updates})
         checkpoint.save(val_state, opt.state_dict(), epoch, val_results,
                         config=config, scheduler_state=sched_state,
-                        step=train_step.steps)
+                        step=train_step.steps,
+                        train_state={'model_state_dict': model.state_dict(),
+                                     'ema': ema_state, 'aug_step': aug_step})
 
         monitored = get_nested_metric(val_results, monitor)
         if sched_kind == 'plateau':
@@ -401,13 +480,54 @@ def main(argv=None):
     (save_dir / 'history.json').write_text(
         json.dumps({k: [float(v) for v in vs] for k, vs in history.items()},
                    indent=1))
+    if plots.have_matplotlib():
+        plots.plot_training_curves(history,
+                                   save_path=save_dir / 'training_curves.png')
+        _plot_val_predictions(model, weights_dir / 'best', val_ds,
+                              batch_size, workers, device,
+                              save_dir / 'val_predictions.png')
+    else:
+        print(plots.SKIP_MESSAGE)
     print(f'\nResults saved to: {save_dir}')
     if history['tumor_dice']:
         best = max(history['tumor_dice'])
         print(f'Best Tumor Dice: {best:.4f} at epoch '
-              f'{history["tumor_dice"].index(best) + 1}')
+              f'{start_epoch + history["tumor_dice"].index(best) + 1}')
     return {**history, 'save_dir': str(save_dir),
             'train_seconds': train_seconds}
+
+
+def _plot_val_predictions(model, best_dir, val_ds, batch_size, workers,
+                          device, save_path):
+    """The best weights (when a ``best`` checkpoint exists) on up to 8
+    validation slices with tumor; the grid shows 4 of them."""
+    from unet_tpu_torch.data.augmentations import normalize_batch
+    from unet_tpu_torch.data.dataset import BatchLoader
+    from unet_tpu_torch.utils.plots import plot_predictions
+    model = copy.deepcopy(model).eval()
+    if (best_dir / 'model.pt').exists():
+        best = torch.load(best_dir / 'model.pt', map_location='cpu',
+                          weights_only=False)
+        model.load_state_dict(best['model_state_dict'], strict=True)
+        print(f"Loaded best model from epoch {best['epoch'] + 1}")
+    images, masks = [], []
+    for imgs, msks in BatchLoader(val_ds, batch_size, num_threads=workers,
+                                  raw_uint8=True):
+        for i in np.flatnonzero(msks.reshape(len(msks), -1).any(1)):
+            images.append(imgs[i])
+            masks.append(msks[i])
+        if len(images) >= 8:
+            break
+    if not images:
+        print('Warning: no tumor samples found in validation set')
+        return
+    x = normalize_batch(torch.from_numpy(np.stack(images[:8])).to(
+        device).float() / 255.0)
+    with torch.no_grad():
+        logits = model(x)
+    plot_predictions(x, np.stack(masks[:8]).astype(np.int64), logits,
+                     num_samples=min(4, len(images)), save_path=save_path,
+                     class_names=['background', 'tumor'])
 
 
 if __name__ == '__main__':

@@ -1,9 +1,11 @@
 """ctypes binding to the native decoder ``csrc/libslicecache.so``.
 
 Counterpart of the decode half of ``unet_tpu/data/cache.py`` (the slice
-cache itself joins with the data-pipeline slice). The library is the
-repository's own C++/libpng code, shared by both packages and built with
-``make -C csrc`` at first use.
+cache itself joins with the data-pipeline slice): ``native_decode_mem``
+for the server's request bodies and ``native_decode_batch`` for the
+predict CLI's files. The library is the repository's own C++/libpng
+code, shared by both packages and built with ``make -C csrc`` at first
+use.
 """
 
 from __future__ import annotations
@@ -43,12 +45,38 @@ def _native_lib() -> Optional[ctypes.CDLL]:
         except (subprocess.CalledProcessError, FileNotFoundError, OSError):
             lib = None
         if lib is not None:
+            lib.decode_resize_batch.restype = ctypes.c_int
+            lib.decode_resize_batch.argtypes = [
+                ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32),
+                ctypes.c_int]
             lib.decode_resize_mem.restype = ctypes.c_int
             lib.decode_resize_mem.argtypes = [
                 ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int,
                 ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32)]
         _lib_cache.append(lib)
         return lib
+
+
+def native_decode_batch(paths, img_size: int, num_threads: int = 0
+                        ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Threaded native PNG decode + PIL-bit-exact bilinear resize of
+    files (the predict CLI's decode stage). Returns ``(images (n, S, S)
+    uint8, meta (n, 2) int32)``, where a meta row is ``[orig_w, orig_h]``
+    on success, ``[-1, 0]`` for a decode failure and ``[-2, 0]`` for a
+    color or 16-bit input (the caller decodes both with PIL; such rows
+    carry undefined pixels). None when the library is unavailable."""
+    lib = _native_lib()
+    if lib is None:
+        return None
+    n = len(paths)
+    out = np.empty((n, img_size, img_size), np.uint8)
+    meta = np.empty((n, 2), np.int32)
+    arr = (ctypes.c_char_p * n)(*[str(p).encode() for p in paths])
+    lib.decode_resize_batch(
+        arr, n, img_size, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        meta.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), num_threads)
+    return out, meta
 
 
 def native_decode_mem(data: bytes, img_size: int

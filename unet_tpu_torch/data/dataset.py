@@ -202,6 +202,13 @@ class BatchLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
+    def skip_epochs(self, epochs: int) -> None:
+        """Draw and discard ``epochs`` epochs' shuffles, so a resumed run
+        sees the order an uninterrupted one would."""
+        if self.shuffle:
+            for _ in range(epochs):
+                self._rng.shuffle(np.arange(len(self.dataset)))
+
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         order = np.arange(len(self.dataset))
         if self.shuffle:

@@ -23,7 +23,7 @@ from typing import Dict
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD = _PKG / 'build'
-SOURCES = ('attention_gate', 'warp')
+SOURCES = ('attention_gate', 'warp', 'conv3x3')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 

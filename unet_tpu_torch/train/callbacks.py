@@ -4,11 +4,14 @@ Counterpart of ``unet_tpu/train/callbacks.py``. ``CheckpointManager``
 writes the reference torch project's ModelCheckpoint payload,
 ``{epoch, model_state_dict, optimizer_state_dict, metrics, config}``, as
 ``<save_dir>/{last,best}/model.pt``, with the port's real AdamW state,
-and a ``meta.json`` beside it (epoch, optimizer step, metrics, config,
-scheduler state, monitor and its value). ``last`` is written every
+a ``meta.json`` beside it (epoch, optimizer step, metrics, config,
+scheduler state, monitor and its value), and ``train_state.pt`` with
+what a resume needs beyond that payload (the training model's weights,
+which differ from the validated ones when those are the EMA's, the EMA
+shadow and the augmentation step counter). ``last`` is written every
 epoch, ``best`` when the monitored metric improves. Every file is
 written to a temporary name and renamed into place, so a crash never
-leaves half a checkpoint.
+leaves half a file.
 """
 
 from __future__ import annotations
@@ -100,7 +103,8 @@ class CheckpointManager:
 
     def _write(self, name: str, model_state: Dict, optimizer_state: Dict,
                epoch: int, metrics: Dict, config: Optional[Dict],
-               scheduler_state: Optional[Dict], step: Optional[int]) -> None:
+               scheduler_state: Optional[Dict], step: Optional[int],
+               train_state: Optional[Dict]) -> None:
         path = self.save_dir / name
         path.mkdir(parents=True, exist_ok=True)
         payload = {'epoch': int(epoch),
@@ -109,6 +113,9 @@ class CheckpointManager:
                    'metrics': metrics,
                    'config': config}
         _atomic_write(path / 'model.pt', lambda p: torch.save(payload, p))
+        if train_state is not None:
+            _atomic_write(path / 'train_state.pt',
+                          lambda p: torch.save(_cpu(train_state), p))
         meta = {
             'epoch': int(epoch),
             'step': None if step is None else int(step),
@@ -124,12 +131,14 @@ class CheckpointManager:
     def save(self, model_state: Dict, optimizer_state: Dict, epoch: int,
              metrics: Dict, config: Optional[Dict] = None,
              scheduler_state: Optional[Dict] = None,
-             step: Optional[int] = None) -> bool:
+             step: Optional[int] = None,
+             train_state: Optional[Dict] = None) -> bool:
         """Write ``last`` (and ``best`` on improvement) from the validated
-        weights' state dict and the optimizer's. Returns True when this
-        epoch improved the monitored metric."""
+        weights' state dict and the optimizer's; ``train_state`` (a dict
+        of tensors and numbers) goes to ``train_state.pt`` for resuming.
+        Returns True when this epoch improved the monitored metric."""
         args = (model_state, optimizer_state, epoch, metrics, config,
-                scheduler_state, step)
+                scheduler_state, step, train_state)
         if self.save_last:
             self._write('last', *args)
         value = get_nested_metric(metrics, self.monitor)
@@ -141,3 +150,53 @@ class CheckpointManager:
             if self.save_best:
                 self._write('best', *args)
         return improved
+
+    # ---- restore ----
+    @staticmethod
+    def restorable(path) -> bool:
+        """Whether a checkpoint directory holds all a resume reads."""
+        path = Path(path)
+        return all((path / f).exists() for f in
+                   ('model.pt', 'meta.json', 'train_state.pt'))
+
+    @staticmethod
+    def find_auto_resume(save_root, experiment_name: str) -> Optional[Path]:
+        """``--resume auto``: the newest run directory (exp, exp2, exp3,
+        ...) under ``save_root`` holding a restorable checkpoint, as its
+        ``weights/last`` (or ``weights/best`` when ``last`` is not
+        restorable), or None for a fresh start."""
+        root = Path(save_root)
+
+        def suffix_num(p: Path) -> int:
+            s = p.name[len(experiment_name):]
+            return int(s) if s.isdigit() else 1
+
+        def checkpoint(run: Path) -> Optional[Path]:
+            for name in ('last', 'best'):
+                c = run / 'weights' / name
+                if CheckpointManager.restorable(c):
+                    return c
+            return None
+
+        runs = [p for p in root.glob(f'{experiment_name}*')
+                if (p.name == experiment_name
+                    or p.name[len(experiment_name):].isdigit())
+                and checkpoint(p) is not None]
+        if not runs:
+            return None
+        return checkpoint(max(runs, key=suffix_num))
+
+    @staticmethod
+    def read_meta(path) -> Dict:
+        return json.loads((Path(path) / 'meta.json').read_text())
+
+    @staticmethod
+    def load(path) -> Dict:
+        """Everything a resume reads from a checkpoint directory:
+        ``{'meta', 'payload' (model.pt), 'train_state'}``, on the CPU."""
+        path = Path(path)
+        load = lambda f: torch.load(path / f, map_location='cpu',
+                                    weights_only=False)
+        return {'meta': CheckpointManager.read_meta(path),
+                'payload': load('model.pt'),
+                'train_state': load('train_state.pt')}
