@@ -24,7 +24,12 @@ Phases (any failure raises and exits non-zero, printing no result):
    data-gradient launches at batch 4; each held against its plain
    version in bf16 and f32, the fused BN+ReLU epilogue against the
    module route, dk against F.conv2d's autograd; times beside the bound
-   and cuDNN's;
+   and cuDNN's; before it, the conv on shapes whose tiles hang over the
+   map's edges (N=3, 37x50, 64->128 and 128->64, and a 5x3 map) and on
+   widths that take the kernel's other routes (256->64, 64->192,
+   192->384), and the gate on a non-square shape (N=3, g 128x24x40, x
+   128x48x80), on the widest gates of a base-128 and a base-8 model
+   (I = 512 and I = 4) and on widths that end inside a chunk;
 5. the serving path: ``create_server`` serving that model (saved as a
    reference-format .pt) to concurrent HTTP clients, with the gate
    kernel's launch count read around the run;
@@ -45,9 +50,12 @@ Phases (any failure raises and exits non-zero, printing no result):
    defaults) must PASS;
 10. times (CUDA events) of each kernel beside its bound and plain version,
    of the model forward, of serving, of the augmentation program and of
-   one optimizer step (8 microbatches forward and backward, clip, AdamW).
+   one optimizer step (8 microbatches forward and backward, clip, AdamW);
+   the host cost of one launch of the conv's and the gate's wrappers
+   (their TMA tensor maps are encoded on every launch).
 
-The line before the last lists the kernels as JSON, and the last line is
+The line before the last lists the kernels as JSON, every number in it
+measured or computed by this run, and the last line is
 ``{"ok": true, "device": {...}}``. Exits 2 when no CUDA device is
 available. Imports nothing of JAX or of the JAX package.
 """
@@ -79,6 +87,21 @@ BASE = 64
 # g is (N, Cg, h, h), x is (N, Cx, 2h, 2h)
 GATES = [(512, 32, 512, 256), (256, 64, 256, 128),
          (128, 128, 128, 64), (64, 256, 64, 32)]
+# more gates the model's guard admits and no 512^2 AttentionUNet-64 has:
+# one neither square nor a power of two, so tiles hang over the right edge
+# (W = 80 is five tiles of 16) and the g patch over the last source column;
+# the widest gate of a base-128 model (I = 512: two passes of the widest
+# accumulator); the widest gate of a base-8 model (I = 4: padded to 8);
+GATE_EXTRA = [dict(n=3, cg=128, h=24, w=40, cx=128, inter=64),
+              dict(n=2, cg=1024, h=16, w=16, cx=1024, inter=512),
+              dict(n=2, cg=8, h=16, w=16, cx=8, inter=4),
+              # channel counts that end inside a 64-channel chunk
+              dict(n=1, cg=80, h=16, w=24, cx=72, inter=36),
+              # channel counts that are no multiples of 8, which the
+              # wrapper pads with zeros for the bf16 kernel: the narrowest
+              # gate of a base-4 model, and Cg, Cx and I all odd ones out
+              dict(n=2, cg=4, h=16, w=16, cx=4, inter=2),
+              dict(n=2, cg=20, h=16, w=24, cx=12, inter=6)]
 # kernel vs plain. float32: the tests' tolerance (tests/test_pallas.py:33).
 # bfloat16: the plain version rounds each einsum and the sum to bf16
 # where the kernel keeps f32, so att can differ by a few bf16 steps
@@ -122,11 +145,28 @@ WARP_MAX_ULP = 2
 # gate is: its error against the float32 module route may exceed the bf16
 # module route's by at most 25%.
 N_CONVS = 17
+# ``ms`` of the kernels' earlier designs at the same shapes, printed on the
+# time lines beside the new times and nowhere in the ``kernels`` line
+# (NVIDIA H100 80GB HBM3, 700.00 W, this script before the tensor-core
+# redesign): the conv through wmma on four warps with a two-stage cp.async
+# pipeline, the gate's f32 FMA GEMM on the CUDA cores
+PREV_MS = {'conv3x3': 15.6088, 'attention_gate': 6.0650}
 CONV_BATCH_BWD = 4
 CONV_F32_TOL = dict(rtol=1e-4, atol=1e-4)
 CONV_BF16_ATOL = 1e-3
 CONV_DK_TOL = 1e-3
 CONV_EPILOGUE_TOL = MODEL_TOL_BF16
+# shapes no model gives the conv (all of those are powers of two): (N, H, W,
+# Cin, Cout) whose tiles of 8 x 16 pixels hang over the bottom and right
+# edges, and one map smaller than a single tile
+CONV_EDGE_SHAPES = [(3, 37, 50, 64, 128), (3, 37, 50, 128, 64),
+                    (2, 5, 3, 64, 64),
+                    # widths no model conv has, which take the kernel's other
+                    # routes: 64-wide tiles whose weights do not stay resident
+                    # (too many, or several channel blocks), and channel
+                    # counts that are no power of two
+                    (2, 20, 33, 256, 64), (1, 9, 17, 64, 192),
+                    (1, 8, 16, 192, 384)]
 
 
 def log(*a):
@@ -170,18 +210,21 @@ def time_ms(fn, reps, flush=None):
 
 # ---------------------------------------------------------------- gates
 
-def gate_inputs(cg, h, cx, inter, dtype, seed):
+def gate_inputs(cg, h, cx, inter, dtype, seed, n=None, w=None):
     """Random folded-gate arguments on the card, weights ~ 1/sqrt(fan_in)
-    so the pre-activations are O(1) and the sigmoid is not saturated."""
+    so the pre-activations are O(1) and the sigmoid is not saturated.
+    g is (n, cg, h, w), x (n, cx, 2h, 2w); n defaults to BATCH, w to h."""
     import torch
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     dev, cl = DEVICE, torch.channels_last
+    n = BATCH if n is None else n
+    w = h if w is None else w
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
-    g = rnd(BATCH, cg, h, h).to(dtype=dtype, memory_format=cl)
-    x = rnd(BATCH, cx, 2 * h, 2 * h).to(dtype=dtype, memory_format=cl)
+    g = rnd(n, cg, h, w).to(dtype=dtype, memory_format=cl)
+    x = rnd(n, cx, 2 * h, 2 * w).to(dtype=dtype, memory_format=cl)
     k = cg + cx
     return (g, x, rnd(cg, inter, scale=k ** -0.5).to(dtype),
             rnd(cx, inter, scale=k ** -0.5).to(dtype),
@@ -223,6 +266,22 @@ def check_gates():
             torch.testing.assert_close(got.float(), want.float(),
                                        **TOL[name])
             errs[(i, name)] = err
+        for j, e in enumerate(GATE_EXTRA):
+            args = gate_inputs(e['cg'], e['h'], e['cx'], e['inter'], dtype,
+                               seed=len(GATES) + j, n=e['n'], w=e['w'])
+            assert ag.fused_shapes_supported(tuple(args[0].shape),
+                                             tuple(args[1].shape))
+            got = ag.attention_gate_fused(*args)
+            want = ag.attention_gate_reference(*args)
+            sync()
+            assert got.shape == want.shape and got.dtype == dtype
+            assert torch.isfinite(got).all()
+            err = (got.float() - want.float()).abs().max().item()
+            log(f'gate extra n={e["n"]} g={e["cg"]}x{e["h"]}x{e["w"]} '
+                f'x={e["cx"]}x{2 * e["h"]}x{2 * e["w"]} I={e["inter"]} '
+                f'{name}: max |kernel - plain| = {err:.3g}')
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **TOL[name])
     return errs
 
 
@@ -468,6 +527,56 @@ def conv_bound(n, h, w, cin, cout, itemsize=2, passes=1):
             * 1e3, nbytes, flops)
 
 
+def check_conv_edges():
+    """The conv kernel on CONV_EDGE_SHAPES, seeded normal inputs: forward,
+    data gradient and the fused affine + ReLU epilogue in bf16 (one bf16
+    step, ``within_one_step``), and forward and epilogue in f32
+    (CONV_F32_TOL), each against the plain version. Not counted."""
+    import torch
+    from unet_tpu_torch.ops import conv3x3 as cv
+    cl = torch.channels_last
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=DEVICE) * scale
+
+    for n, h, w, cin, cout in CONV_EDGE_SHAPES:
+        k = rnd(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+        mul, add = 1.0 + 0.1 * rnd(cout), 0.1 * rnd(cout)
+        xf = rnd(n, cin, h, w).contiguous(memory_format=cl)
+        up = rnd(n, cout, h, w).contiguous(memory_format=cl)
+        assert cv.igemm_shapes_supported(tuple(xf.shape), tuple(k.shape))
+        xb = xf.to(torch.bfloat16).requires_grad_(True)
+        y = cv.conv3x3(xb, k)
+        y.backward(up.to(torch.bfloat16))
+        with torch.no_grad():
+            checks = {
+                'forward': (y, cv.conv3x3_plain(xb, k)),
+                'dx': (xb.grad, cv.conv3x3_plain(
+                    up.to(torch.bfloat16), k.flip(0, 1).transpose(2, 3))),
+                'epilogue': (cv.conv3x3_bn_relu(xb, k, mul, add),
+                             cv.conv3x3_plain(xb, k, mul, add, True))}
+            sync()
+            held = {}
+            for name, (got, want) in checks.items():
+                assert got.shape == want.shape and got.dtype == want.dtype
+                ok, share, err, beyond = within_one_step(got, want)
+                held[name] = (f'{name} held {ok} ({share:.4%} differ, '
+                              f'{beyond} beyond one step, max {err:.3g})')
+                assert ok, (n, h, w, cin, cout, name, err)
+            got32 = cv.conv3x3(xf, k)
+            want32 = cv.conv3x3_plain(xf, k)
+            ep32 = cv.conv3x3_bn_relu(xf, k, mul, add)
+            wep32 = cv.conv3x3_plain(xf, k, mul, add, True)
+            err32 = max((got32 - want32).abs().max().item(),
+                        (ep32 - wep32).abs().max().item())
+            torch.testing.assert_close(got32, want32, **CONV_F32_TOL)
+            torch.testing.assert_close(ep32, wep32, **CONV_F32_TOL)
+        log(f'conv3x3 edge shape n={n} {h}x{w} {cin}->{cout}: bf16 '
+            + '; '.join(held.values())
+            + f'; f32 forward and epilogue max |kernel - plain| {err32:.3g}')
+
+
 def check_convs(model, x, card):
     """The conv kernel at every 3x3 conv of AttentionUNet-64 with Cin and
     Cout >= 64, on the calibrated model's own weights and activations at
@@ -596,9 +705,11 @@ def check_convs(model, x, card):
         wcl = conv.weight.detach().to(torch.bfloat16).contiguous(
             memory_format=cl)
         with torch.no_grad():
-            t_k = time_ms(lambda: cv.conv3x3(inp, kb), 5, flush)
+            t_k1 = time_ms(lambda: cv.conv3x3(inp, kb), 5, flush)
             t_p = time_ms(lambda: cv.conv3x3_plain(inp, kb), 2, flush)
             t_l = time_ms(lambda: F.conv2d(inp, wcl, padding=1), 5, flush)
+            t_k2 = time_ms(lambda: cv.conv3x3(inp, kb), 5, flush)
+            t_k = (t_k1 + t_k2) / 2
             x4 = inp[:CONV_BATCH_BWD]
             g4 = torch.randn(CONV_BATCH_BWD, cout, h, w, device=DEVICE).to(
                 torch.bfloat16).contiguous(memory_format=cl)
@@ -614,7 +725,8 @@ def check_convs(model, x, card):
         pbound, pbytes, pflops = conv_bound(CONV_BATCH_BWD, h, w, cin, cout,
                                             passes=2)
         log(f'TIME conv3x3 {name} b{n} {h}^2 {cin}->{cout} bf16: kernel '
-            f'{t_k:.4f} ms, plain {t_p:.4f} ms, cuDNN {t_l:.4f} ms, bound '
+            f'{t_k:.4f} ms ({t_k1:.4f} / {t_k2:.4f} around the others), '
+            f'plain {t_p:.4f} ms, cuDNN {t_l:.4f} ms, bound '
             f'{bound:.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} '
             f'GFLOP; {flops / t_k / 1e9:.1f} TFLOP/s, roofline share '
             f'{bound / t_k:.1%}); fwd+dx b{CONV_BATCH_BWD}: kernel '
@@ -638,6 +750,10 @@ def check_convs(model, x, card):
             f'{t_bytes:.3f} ms, {acc["flops"] / 1e12:.2f} TFLOP over '
             f'{t_ops:.3f} ms), roofline share '
             f'{acc["bound_ms"] / acc["ms"]:.1%}  [{card}]')
+    rate = total['flops'] / total['ms'] / 1e9
+    log(f'TIME conv3x3 forward b{BATCH}: {rate:.1f} TFLOP/s over the '
+        f'{N_CONVS} convs; the earlier design took {PREV_MS["conv3x3"]} ms  '
+        f'[{card}]')
     total.update(launches=launches, max_abs_err=max_err)
     return total
 
@@ -1122,9 +1238,64 @@ def time_gates(card, errs):
     del flush
     total['bound_by'] = ('bytes' if total['t_bytes'] >= total['t_ops']
                          else 'operations')
+    log(f'TIME gates, the four of one bf16 forward at b{BATCH}: kernel '
+        f'{total["ms"]:.4f} ms, plain {total["plain_ms"]:.4f} ms, bound '
+        f'{total["bound_ms"]:.4f} ms ({total["bound_by"]}), roofline share '
+        f'{total["bound_ms"] / total["ms"]:.1%}; the earlier design took '
+        f'{PREV_MS["attention_gate"]} ms  [{card}]')
     total['max_abs_err'] = max(e for (i, n), e in errs.items()
                                if n == 'bfloat16')
     return total
+
+
+def time_launch_host(card):
+    """Host cost of one launch of the two tensor-core kernels, tiny inputs
+    so the card keeps up, host clock over back-to-back calls with the
+    synchronize after the clock is read: the whole wrapper call (checks,
+    output allocation, ctypes), and the C launch function alone (the TMA
+    tensor maps it encodes on every launch, the attribute call, the
+    launch), called through ctypes on the same pointers."""
+    import torch
+    from unet_tpu_torch.ops import attention_gate as ag
+    from unet_tpu_torch.ops import conv3x3 as cv
+    cl = torch.channels_last
+    x = torch.randn(1, 64, 8, 16, device=DEVICE).to(
+        torch.bfloat16).contiguous(memory_format=cl)
+    k = torch.randn(3, 3, 64, 64, device=DEVICE).to(torch.bfloat16)
+    y = torch.empty_like(x)
+    gate = gate_inputs(64, 16, 64, 32, torch.bfloat16, seed=0, n=1)
+    g, gx, wg, wx, badd, wpsi, bpsi = gate
+    gy = torch.empty_like(gx)
+    stream = torch.cuda.current_stream().cuda_stream
+    conv_c, gate_c = cv._lib().conv3x3_launch, ag._lib().attention_gate_launch
+    calls = {
+        'conv3x3 wrapper': lambda: cv.conv3x3(x, k),
+        'conv3x3 C launch (3 maps)': lambda: conv_c(
+            1, x.data_ptr(), k.data_ptr(), None, None, y.data_ptr(), 1, 8,
+            16, 64, 64, 0, stream),
+        'attention_gate wrapper': lambda: ag.attention_gate_fused(*gate),
+        'attention_gate C launch (4 maps)': lambda: gate_c(
+            1, g.data_ptr(), gx.data_ptr(), wg.data_ptr(), wx.data_ptr(),
+            badd.data_ptr(), wpsi.data_ptr(), bpsi.data_ptr(), gy.data_ptr(),
+            1, 16, 16, 32, 32, 64, 64, 32, ag._align_scale(16, 32),
+            ag._align_scale(16, 32), stream)}
+    reps = 500
+    out = {}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            for _ in range(20):
+                r = fn()
+                assert torch.is_tensor(r) or r == 0, (name, r)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            out[name] = (time.perf_counter() - t0) / reps * 1e6
+            sync()
+    log(f'TIME host cost of one launch, tensor maps encoded every time '
+        f'(host clock, {reps} back-to-back calls on tiny inputs): '
+        + ', '.join(f'{name} {us:.1f} us' for name, us in out.items())
+        + f'  [{card}]')
 
 
 def time_warp(card, err):
@@ -1265,6 +1436,7 @@ def main():
 
     errs = check_gates()
     warp_err = check_warp()
+    check_conv_edges()
     model, x = check_model(card)
     tc = check_convs(model, x, card)
     del x
@@ -1282,6 +1454,7 @@ def main():
     torch.cuda.empty_cache()
     t = time_gates(card, errs)
     tw = time_warp(card, warp_err)
+    time_launch_host(card)
     time_train_parts(card)
 
     kernels = [{

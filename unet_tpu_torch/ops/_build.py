@@ -3,7 +3,8 @@
 Each ``unet_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``unet_tpu_torch/build/lib<name>.so``, which is loaded with ctypes. The
-build runs at first use (or when the source is newer than the library);
+build runs at first use, or when the source or any shared header
+(``csrc/*.cuh``, such as ``hopper.cuh``) is newer than the library;
 ``build_all()`` starts one ``nvcc`` per source at once. Delete
 ``unet_tpu_torch/build/`` to force a rebuild. Nothing here runs at
 import time, so the CPU-only tests import this module freely.
@@ -49,13 +50,26 @@ def library_path(name: str) -> Path:
     return BUILD / f'lib{name}.so'
 
 
+def is_stale(name: str) -> bool:
+    """True when ``lib<name>.so`` is missing or older than
+    ``csrc/<name>.cu`` or any header ``csrc/*.cuh`` (every source may
+    include every header)."""
+    so = library_path(name)
+    if not so.exists():
+        return True
+    built = so.stat().st_mtime
+    deps = [CSRC / f'{name}.cu', *CSRC.glob('*.cuh')]
+    return any(d.stat().st_mtime > built for d in deps)
+
+
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
-    The compiler's output (ptxas register/spill report included) is
-    kept in ``build/<name>.log``. Raises with that output on failure."""
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists
+    (``is_stale``). The compiler's output (ptxas register/spill report
+    included) is kept in ``build/<name>.log``. Raises with that output
+    on failure."""
     src = CSRC / f'{name}.cu'
     so = library_path(name)
-    if so.exists() and so.stat().st_mtime >= src.stat().st_mtime:
+    if not is_stale(name):
         return so
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f'.{os.getpid()}.{threading.get_ident()}.tmp')
@@ -65,7 +79,8 @@ def build(name: str) -> Path:
         ' '.join(cmd) + '\n' + proc.stdout + proc.stderr)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f'nvcc failed for {src}:\n{proc.stderr}')
+        raise RuntimeError(f'nvcc failed for {src}:\n{proc.stdout}'
+                           f'{proc.stderr}')
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     return so
 

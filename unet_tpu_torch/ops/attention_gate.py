@@ -13,6 +13,11 @@ BatchNorm folded into the 1x1 convs the gate is
 the plain PyTorch version, ``attention_gate_reference``, only for
 tensors on the CPU. Tensors are NCHW; the kernel wants g and x in
 ``torch.channels_last`` memory so each pixel's channels are contiguous.
+In bfloat16 the kernel runs on the tensor cores and takes exactly 2x
+upsampling (so every shape the model's guard, ``fused_shapes_supported``,
+admits): its TMA loads want 16-byte rows, so the wrapper pads Cg, Cx and
+I with zeros to multiples of 8 before the launch, which is exact. The
+float32 kernel takes any shape.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from unet_tpu_torch.ops.resize import resize_bilinear_align_corners
 
@@ -93,6 +99,31 @@ def _align_scale(n_in: int, n_out: int) -> float:
     return float(np.float32((n_in - 1) / (n_out - 1))) if n_out > 1 else 0.0
 
 
+def _pad_dim(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """t with zeros appended along dim up to a multiple of 8."""
+    pad = -t.shape[dim] % 8
+    if not pad:
+        return t
+    widths = [0, 0] * (t.dim() - 1 - dim) + [0, pad]
+    return F.pad(t, widths)
+
+
+def _pad_for_tma(g, x, wg, wx, badd, wpsi):
+    """Cg, Cx and I padded with zeros to multiples of 8, as the bfloat16
+    kernel's TMA loads want every row 16-byte aligned. Exact: a zero
+    channel of g or x meets a zero row of wg or wx and adds nothing to t
+    (the kernel walks K in chunks of 64 channels whose tail TMA fills
+    with zeros in just this way); a zero column of wg and wx with a zero
+    of badd gives t = relu(0) = 0 there, times a zero of wpsi. The
+    caller drops the padded channels of the output. What is a multiple
+    of 8 already is passed through as it is."""
+    cl = torch.channels_last
+    g, x = (_pad_dim(t, 1).contiguous(memory_format=cl) for t in (g, x))
+    wg, wx = (_pad_dim(_pad_dim(t, 0), 1) for t in (wg, wx))
+    return (g, x, wg, wx, _pad_dim(badd, 0),
+            _pad_dim(wpsi.reshape(-1, 1), 0))
+
+
 def _check(g, x, wg, wx, badd, wpsi, bpsi) -> None:
     if x.dtype not in _DTYPES:
         raise TypeError(f'attention gate kernel: unsupported dtype {x.dtype}')
@@ -115,6 +146,11 @@ def _check(g, x, wg, wx, badd, wpsi, bpsi) -> None:
         if shape is not None and tuple(t.shape) != shape:
             raise ValueError(f'attention gate kernel: {name} has shape '
                              f'{tuple(t.shape)}, needs {shape}')
+    if x.dtype == torch.bfloat16 and (
+            x.shape[2] != 2 * g.shape[2] or x.shape[3] != 2 * g.shape[3]):
+        raise ValueError(
+            f'attention gate kernel: the bfloat16 kernel takes exactly 2x '
+            f'upsampling, not g {tuple(g.shape)}, x {tuple(x.shape)}')
     if wpsi.numel() != inter or bpsi.numel() != 1:
         raise ValueError('attention gate kernel: wpsi needs I elements and '
                          'bpsi one')
@@ -157,18 +193,24 @@ def attention_gate_fused(g: torch.Tensor, x: torch.Tensor,
     if not torch.is_tensor(bpsi):
         bpsi = torch.tensor([float(bpsi)], device=x.device)
     _check(g, x, wg, wx, badd, wpsi, bpsi)
+    cx = x.shape[1]
+    if x.dtype == torch.bfloat16:
+        g, x, wg, wx, badd, wpsi = _pad_for_tma(g, x, wg, wx, badd, wpsi)
     n, cg, h_in, w_in = g.shape
-    _, cx, h_out, w_out = x.shape
+    _, _, h_out, w_out = x.shape
     out = torch.empty_like(x, memory_format=torch.channels_last)
     lib = _lib()
     err = lib.attention_gate_launch(
         _DTYPES[x.dtype], g.data_ptr(), x.data_ptr(), wg.data_ptr(),
         wx.data_ptr(), badd.data_ptr(), wpsi.data_ptr(), bpsi.data_ptr(),
-        out.data_ptr(), n, h_in, w_in, h_out, w_out, cg, cx, wg.shape[1],
+        out.data_ptr(), n, h_in, w_in, h_out, w_out, cg, x.shape[1],
+        wg.shape[1],
         _align_scale(h_in, h_out), _align_scale(w_in, w_out),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError('attention gate kernel launch failed: '
                            + lib.attention_gate_error_string(err).decode())
     launch_count += 1
+    if out.shape[1] != cx:
+        out = out[:, :cx].contiguous(memory_format=torch.channels_last)
     return out
