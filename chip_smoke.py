@@ -46,13 +46,35 @@ Phases (any failure raises and exits non-zero, printing no result):
 8. ``--resume`` of that run to a third epoch with ``--profile-dir``
    (epoch 3, one warp launch per super-batch, the trace names the warp
    kernel, plots drawn or skipped with one line);
-9. the overfit CLI (``--synthetic --model attention_unet`` at its
-   defaults) must PASS;
-10. times (CUDA events) of each kernel beside its bound and plain version,
-   of the model forward, of serving, of the augmentation program and of
-   one optimizer step (8 microbatches forward and backward, clip, AdamW);
-   the host cost of one launch of the conv's and the gate's wrappers
-   (their TMA tensor maps are encoded on every launch).
+9. the overfit CLI (``--synthetic --model attention_unet``, 100 of its
+   default 200 epochs) must PASS;
+10. the slice cache: 80 synthetic 512^2 PNGs written through PIL,
+   ``build_cache`` (printing which builder ran), ``CachedSliceDataset``
+   held byte for byte against ``SliceDataset`` on every slice, the loader
+   alone timed on the cache and on the PNGs, then the train CLI with
+   ``--cache`` on ``configs/lung_tumor.yaml`` for 2 epochs (warp launches
+   counted around it);
+11. two ranks on the one card, each a process of this script
+   (``--dist-worker``), over gloo: NCCL refuses two ranks on one device.
+   The one-step parity (loss and gradient norm after the step's one
+   reduction, a fixed global batch of 4, float32 and bfloat16) against
+   this process; one rank's step, its gradient all-reduce and a
+   BatchNorm all-reduce timed; then the train CLI with ``--num-processes
+   2`` on the same config, init and cache: warp launches on each rank,
+   one run directory, the final weights within a stated distance of the
+   single-process ``--cache`` run's. With more than one GPU, also one
+   NCCL rank per GPU spawned by one command through ``tpu.data_parallel``,
+   each rank's warp launches read from the CLI's report;
+12. times (CUDA events) of each kernel beside its bound and plain version,
+   of the model forward, of serving, of the augmentation program and its
+   draws, and of one optimizer step (8 microbatches forward and backward,
+   clip, AdamW); the host cost of one launch of the conv's and the gate's
+   wrappers (their TMA tensor maps are encoded on every launch).
+
+The train CLI phases that count launches in this process run on a copy
+of the config with ``tpu.data_parallel: 1``: the config's -1 would spawn
+one rank per GPU on a host with several. Each phase's seconds are
+printed before the result lines.
 
 The line before the last lists the kernels as JSON, every number in it
 measured or computed by this run, and the last line is
@@ -168,9 +190,54 @@ CONV_EDGE_SHAPES = [(3, 37, 50, 64, 128), (3, 37, 50, 128, 64),
                     (2, 20, 33, 256, 64), (1, 9, 17, 64, 192),
                     (1, 8, 16, 192, 384)]
 
+# the overfit CLI's depth: half its default 200 epochs, to make room for
+# the cache and two-rank phases (its tumor Dice read 0.9993 at epoch 100
+# and 1.0000 at 200 on the H100; the bar is 0.8)
+OVERFIT_EPOCHS = 100
+# the slice cache phase: synthetic PNGs of (volumes, slices per volume),
+# the same data as the train phase (16 training volumes x 4 slices)
+CACHE_DATA = (20, 4)
+# two ranks on the one card over gloo. The one-step parity's fixed global
+# batch (2 rows per rank) and its tolerances, relative: float32 sums the
+# same products in other orders (BatchNorm sums split over the ranks,
+# cuDNN at batch 2 against 4), as tests/test_multihost.py holds JAX's two
+# processes (loss 1e-5, gradient norm 1e-4; the norm here is twice that:
+# this norm of 58 is measured 4.5e-5 apart on the H100, and a row mix-up
+# moves it by percents); bfloat16 rounds each activation, so an order
+# difference moves a value by a bf16 step (2^-8) where it lands on a
+# rounding boundary, and the loss and norm by a fraction of that
+# (measured up to 1.10e-3 and 1.09e-3 on the H100; planted rank-local
+# BatchNorm statistics moved the bf16 norm by 1.3e-2 there, the f32 one
+# by 9.1e-3).
+DIST_BATCH = 4
+DIST_TOL = {'float32': {'loss': 1e-5, 'gnorm': 2e-4},
+            'bfloat16': {'loss': 5e-3, 'gnorm': 5e-3}}
+# the 2-epoch run against one process: AdamW turns the noise of near-zero
+# gradients into up to +-lr per step (tests/test_multihost.py:1-16), so
+# the weights are held loosely: their distance from the single-process
+# weights at most DIST_DRIFT of the distance those moved from the init
+# (measured 0.0824-0.0831 on the H100; planted faults read 0.50 with
+# rank-local augmentation draws, whose epoch-2 losses stayed within 0.005
+# of one process, and 0.42 with rank-local BatchNorm statistics), and
+# the epoch-2 losses within DIST_LOSS (measured 0.0005 apart)
+DIST_DRIFT = 0.25
+DIST_LOSS = 0.1
+DIST_TIMEOUT = 600
+
 
 def log(*a):
     print(*a, flush=True)
+
+
+PHASE_SECONDS = {}
+
+
+def timed(name, fn, *args):
+    """fn(*args), its wall seconds kept under ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
+    return out
 
 
 def card_line():
@@ -1055,6 +1122,37 @@ def _save_pt(model, cfg, path):
                                      model.state_dict().items()}}, path)
 
 
+def one_rank_config(tmp):
+    """``TRAIN_CONFIG`` with ``tpu.data_parallel: 1``, written to ``tmp``:
+    the phases that count launches in this process run the train CLI
+    here, and the config's -1 would spawn one rank per GPU on a host with
+    several (their launches counted in other processes)."""
+    import yaml
+    path = f'{tmp}/one_rank.yaml'
+    if not os.path.exists(path):
+        cfg = _train_cfg()
+        cfg.setdefault('tpu', {})['data_parallel'] = 1
+        with open(path, 'w') as f:
+            yaml.safe_dump(cfg, f)
+    return path
+
+
+def save_init(tmp):
+    """The flagship model's random weights from seed 7, as a
+    reference-format ``tmp/init.pt``; returns the model."""
+    import torch
+    from unet_tpu_torch.models import create_model
+    cfg = _train_cfg()
+    m = cfg['model']
+    init = create_model(m['type'], n_channels=m['n_channels'],
+                        n_classes=m['n_classes'], bilinear=m['bilinear'],
+                        base_features=m['base_features'],
+                        deep_supervision=m['deep_supervision'],
+                        generator=torch.Generator().manual_seed(7))
+    _save_pt(init, cfg, f'{tmp}/init.pt')
+    return init
+
+
 def run_train_cli(tmp, name, config_path, init_pt):
     from unet_tpu_torch.cli import train as train_cli
     argv = ['--config', config_path, '--project', tmp, '--name', name,
@@ -1071,25 +1169,18 @@ def train_main_path(card, tmp):
     import torch
     import yaml
     from unet_tpu_torch.cli.predict import load_model
-    from unet_tpu_torch.models import create_model
     from unet_tpu_torch.ops import warp
     from unet_tpu_torch.train.trainer import make_predict_step_u8
     from unet_tpu_torch.utils.config import load_config
     from unet_tpu_torch.utils.torch_port import load_torch_checkpoint
 
-    cfg = load_config(TRAIN_CONFIG)
-    m = cfg['model']
-    init = create_model(m['type'], n_channels=m['n_channels'],
-                        n_classes=m['n_classes'], bilinear=m['bilinear'],
-                        base_features=m['base_features'],
-                        deep_supervision=m['deep_supervision'],
-                        generator=torch.Generator().manual_seed(7))
+    config = one_rank_config(tmp)
+    init = save_init(tmp)
     out = {}
     init_pt = f'{tmp}/init.pt'
-    _save_pt(init, cfg, init_pt)
     warp.launch_count = 0
     t0 = time.perf_counter()
-    hist = run_train_cli(tmp, 'aug_on', TRAIN_CONFIG, init_pt)
+    hist = run_train_cli(tmp, 'aug_on', config, init_pt)
     wall = time.perf_counter() - t0
     launches = warp.launch_count
     log(f'train: {TRAIN_CONFIG} (bf16, b4 x accum 8, augmentation on) '
@@ -1097,6 +1188,7 @@ def train_main_path(card, tmp):
         f'{TRAIN_SUPERBATCHES} super-batches; train loss '
         f'{hist["train_loss"]}, val loss {hist["val_loss"]}')
     assert launches == TRAIN_SUPERBATCHES, launches
+    assert hist['warp_launches'] == [launches], hist['warp_launches']
     assert all(np.isfinite(hist['train_loss'] + hist['val_loss']))
     last = f'{hist["save_dir"]}/weights/last/model.pt'
     before = init.state_dict()
@@ -1121,6 +1213,7 @@ def train_main_path(card, tmp):
     out['aug_on'] = hist
 
     # the same run with augmentation off (not the main path)
+    cfg = load_config(config)
     off = dict(cfg, augmentation=dict(cfg['augmentation'],
                                       enabled=False))
     off_path = f'{tmp}/aug_off.yaml'
@@ -1146,7 +1239,7 @@ def resume_path(card, tmp, run_dir):
     from unet_tpu_torch.ops import warp
     from unet_tpu_torch.utils.plots import SKIP_MESSAGE, have_matplotlib
     prof = f'{tmp}/profile'
-    argv = ['--config', TRAIN_CONFIG, '--project', tmp, '--name',
+    argv = ['--config', one_rank_config(tmp), '--project', tmp, '--name',
             'aug_on_resumed', '--resume', f'{run_dir}/weights/last',
             '--profile-dir', prof, *TRAIN_ARGS[:-2], '--epochs', '3']
     if DEVICE == 'cpu':
@@ -1183,10 +1276,11 @@ def resume_path(card, tmp, run_dir):
 
 def overfit_path(card, tmp):
     """``unet_tpu_torch.cli.overfit --synthetic --model attention_unet``
-    at its defaults (256^2, base 64, 4 samples, 200 epochs): must PASS."""
+    at its defaults (256^2, base 64, 4 samples) but OVERFIT_EPOCHS
+    epochs: must PASS."""
     from unet_tpu_torch.cli import overfit
     argv = ['--synthetic', '--model', 'attention_unet', '--output',
-            f'{tmp}/overfit']
+            f'{tmp}/overfit', '--epochs', str(OVERFIT_EPOCHS)]
     if DEVICE == 'cpu':
         argv += ['--device', 'cpu', '--img-size', str(IMG),
                  '--base-features', str(BASE), '--samples', '2',
@@ -1203,6 +1297,426 @@ def overfit_path(card, tmp):
         f'[{card}]')
     assert res['passed'], res['final_dice']
     return res
+
+
+# ---------------------------------------------------------------- cache
+
+def write_pngs(root, volumes, slices):
+    """The synthetic dataset at IMG^2 as ``root/{images,labels}/*.png``,
+    through PIL; returns the number of slices."""
+    from PIL import Image
+    from unet_tpu_torch.data.dataset import SyntheticSliceDataset
+    ds = SyntheticSliceDataset(num_volumes=volumes, slices_per_volume=slices,
+                               img_size=IMG, split='all')
+    for d in ('images', 'labels'):
+        os.makedirs(f'{root}/{d}', exist_ok=True)
+    for i, name in enumerate(ds.files):
+        img, msk = ds.load_raw(i)
+        Image.fromarray(img).save(f'{root}/images/{name}')
+        Image.fromarray(msk * 255).save(f'{root}/labels/{name}')
+    return len(ds)
+
+
+def cache_path(card, tmp):
+    """The slice cache: synthetic PNGs written through PIL, the blob built
+    by ``build_cache`` and held byte for byte against the PNG loader, the
+    loader alone timed on both, then the train CLI on the flagship config
+    with ``--cache`` (a main path: warp launches counted around it).
+    Returns (cache path, the --cache run's history)."""
+    from unet_tpu_torch.cli import train as train_cli
+    from unet_tpu_torch.data.cache import CachedSliceDataset, build_cache
+    from unet_tpu_torch.data.dataset import BatchLoader, SliceDataset
+    from unet_tpu_torch.ops import warp
+    root, blob = f'{tmp}/pngs', f'{tmp}/slices.bin'
+    t0 = time.perf_counter()
+    n = write_pngs(root, *CACHE_DATA)
+    t_png = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    build_cache(root, blob, img_size=IMG)
+    t_build = time.perf_counter() - t0
+    native = json.loads(open(blob + '.json').read())['native']
+    cached = CachedSliceDataset(blob, split='all')
+    png = SliceDataset(root, split='all', img_size=IMG)
+    assert cached.files == png.files and len(cached) == n
+    for i in range(n):
+        for a, b in zip(cached.load_raw(i), png.load_raw(i)):
+            assert a.shape == b.shape == (IMG, IMG) and np.array_equal(a, b), (
+                png.files[i])
+    log(f'cache: {n} PNGs of {IMG}^2 written in {t_png:.1f} s; build_cache '
+        f'ran the {"native (libpng)" if native else "PIL"} builder in '
+        f'{t_build:.2f} s ({os.path.getsize(blob) / 1e6:.1f} MB); '
+        f'CachedSliceDataset.load_raw equals SliceDataset.load_raw on all '
+        f'{n} slices, byte for byte')
+    # the loader alone, as the train CLI builds it: what each source
+    # costs the host per epoch, apart from the card
+    rates = {}
+    for name, ds in (('cache', cached), ('PNGs', png)):
+        loader = BatchLoader(ds, 4, shuffle=True, drop_last=True,
+                             raw_uint8=True)
+        for _ in range(2):  # the second pass reads a warm page cache
+            t0 = time.perf_counter()
+            rows = sum(len(b[0]) for b in loader)
+            rates[name] = rows / (time.perf_counter() - t0)
+    log(f'TIME loader alone, batch 4, 8 threads, second pass over {n} '
+        f'slices: cache {rates["cache"]:.0f} slices/s, PNGs (PIL decode) '
+        f'{rates["PNGs"]:.0f} slices/s  [{card}]')
+
+    argv = ['--config', one_rank_config(tmp), '--project', tmp,
+            '--init-weights', f'{tmp}/init.pt', '--data', root, '--epochs',
+            '2', '--name', 'cached', '--cache', blob]
+    if DEVICE == 'cpu':
+        argv += ['--device', 'cpu']
+    warp.launch_count = 0
+    hist = train_cli.main(argv)
+    launches = warp.launch_count
+    assert launches == TRAIN_SUPERBATCHES, launches
+    assert all(np.isfinite(hist['train_loss'] + hist['val_loss']))
+    n_train = len(CachedSliceDataset(blob, split='train'))
+    log(f'TIME train --cache: ' + ', '.join(
+        f'epoch {i + 1} {n_train / t:.2f} slices/s ({t:.3f} s)'
+        for i, t in enumerate(hist['train_seconds'])) + f'  [{card}]')
+    log(f'cache: train CLI --cache on {TRAIN_CONFIG}: {launches} warp '
+        f'launches for {TRAIN_SUPERBATCHES} super-batches; train loss '
+        f'{hist["train_loss"]}, val loss {hist["val_loss"]}')
+    return blob, hist
+
+
+# ---------------------------------------------------------------- 2 ranks
+
+def parity_batch(blob, path):
+    """The one-step parity's fixed global batch: the first DIST_BATCH
+    training slices of the cache, saved for the ranks."""
+    from unet_tpu_torch.data.cache import CachedSliceDataset
+    ds = CachedSliceDataset(blob, split='train')
+    pairs = [ds.load_raw(i) for i in range(DIST_BATCH)]
+    np.savez(path, imgs=np.stack([p[0] for p in pairs])[:, None],
+             msks=np.stack([p[1] for p in pairs]))
+
+
+def one_step(init_pt, batch_path, rank, world):
+    """Loss and gradient norm of ``TrainStep.accumulate`` (one microbatch,
+    this rank's rows of the fixed batch, the step's one reduction over
+    the ranks) for the flagship model from ``init_pt``, in float32 and
+    bfloat16: {dtype: (loss, grad norm)}."""
+    import torch
+    from unet_tpu_torch.models import create_model
+    from unet_tpu_torch.train.trainer import create_optimizer, make_train_step
+    from unet_tpu_torch.utils.torch_port import load_torch_checkpoint
+    cfg = _train_cfg()
+    state, _, _ = load_torch_checkpoint(init_pt)
+    data = np.load(batch_path)
+    lb = DIST_BATCH // world
+    rows = slice(rank * lb, (rank + 1) * lb)
+    imgs = torch.from_numpy(data['imgs'][rows]).to(DEVICE).float()[None]
+    imgs = (imgs / 255.0 - 0.5) / 0.5
+    msks = torch.from_numpy(data['msks'][rows]).to(DEVICE)[None]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        m = cfg['model']
+        model = create_model(m['type'], base_features=m['base_features'],
+                             dtype=dtype)
+        model.load_state_dict(state, strict=True)
+        model = model.to(DEVICE, memory_format=torch.channels_last)
+        step = make_train_step(model, _loss_fn(cfg),
+                               create_optimizer(model, 1e-4), accum_steps=1)
+        loss = step.accumulate(imgs, msks, [1.0])
+        gnorm = torch.sqrt(sum(torch.sum(p.grad.double() ** 2)
+                               for p in model.parameters()))
+        out[str(dtype).split('.')[-1]] = (float(loss), float(gnorm))
+        del model, step
+    return out
+
+
+def time_rank_step(world):
+    """One rank's optimizer step on the flagship super-batch (its
+    SUPER / world rows), the step's flat gradient all-reduce alone, and
+    one BatchNorm statistics all-reduce, host clock around synchronized
+    calls (the collectives block the host under gloo)."""
+    import torch
+    import torch.distributed as dist
+    from unet_tpu_torch.core.distributed import all_reduce_sum
+    from unet_tpu_torch.models import create_model
+    from unet_tpu_torch.models.layers import TorchBatchNorm
+    from unet_tpu_torch.train.trainer import (average_over_ranks,
+                                              create_optimizer,
+                                              make_train_step)
+    cfg = _train_cfg()
+    m, tc = cfg['model'], cfg['train']
+    a = tc['accumulation_steps']
+    lb = cfg['data']['batch_size'] // world
+    model = create_model(m['type'], base_features=m['base_features'],
+                         dtype=torch.bfloat16,
+                         generator=torch.Generator().manual_seed(3))
+    model = model.to(DEVICE, memory_format=torch.channels_last)
+    step = make_train_step(model, _loss_fn(cfg),
+                           create_optimizer(model, 1e-6), a,
+                           grad_clip=tc['grad_clip'])
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    imgs = torch.randn(a, lb, 1, IMG, IMG, generator=gen, device=DEVICE)
+    msks = (torch.rand(a, lb, IMG, IMG, generator=gen, device=DEVICE)
+            > 0.9).to(torch.uint8)
+    mb = np.ones(a, np.float32)
+
+    def host_ms(fn, reps):
+        fn()
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    torch.cuda.reset_peak_memory_stats()
+    t_step = host_ms(lambda: step(imgs, msks, 1e-6, mb), 1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    grads = [p.grad for p in model.parameters()]
+    loss = torch.zeros((), device=DEVICE)
+    t_grad = host_ms(lambda: average_over_ranks(grads, loss), 3)
+    bns = [mod for mod in model.modules() if isinstance(mod, TorchBatchNorm)]
+    widest = max(bn.weight.numel() for bn in bns)
+    stats = torch.zeros(2 * widest + 1, device=DEVICE)
+    t_bn = host_ms(lambda: all_reduce_sum(stats), 20)
+    n_grad = sum(g.numel() for g in grads)
+    return {'step_ms': t_step, 'grad_allreduce_ms': t_grad,
+            'grad_mb': (n_grad + 1) * 4 / 1e6, 'bn_allreduce_ms': t_bn,
+            # forward and backward of each BatchNorm, per microbatch
+            'bn_allreduces': 2 * len(bns) * a, 'step_peak_gib': peak}
+
+
+def dist_worker(argv):
+    """One rank of the distributed phase, run as ``chip_smoke.py
+    --dist-worker DEVICE CONFIG COORDINATOR RANK WORLD TMP``: joins the group,
+    runs the one-step parity and the step timings, then the train CLI as
+    that rank (warp launches counted around it), and prints its results
+    as one ``DIST {json}`` line."""
+    global DEVICE, TRAIN_CONFIG
+    import torch
+    from unet_tpu_torch.cli import train as train_cli
+    from unet_tpu_torch.core.distributed import init_distributed
+    from unet_tpu_torch.ops import warp
+    DEVICE, TRAIN_CONFIG, coordinator, rank, world, tmp = argv
+    rank, world = int(rank), int(world)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if DEVICE == 'cuda':
+        torch.cuda.set_device(0)
+    init_distributed(coordinator, world, rank, DEVICE, timeout_seconds=600)
+    out = {'rank': rank,
+           'parity': one_step(f'{tmp}/init.pt', f'{tmp}/parity.npz', rank,
+                              world)}
+    if DEVICE == 'cuda':
+        out.update(time_rank_step(world))
+        torch.cuda.reset_peak_memory_stats()
+    argv = ['--config', TRAIN_CONFIG, '--project', f'{tmp}/dist', '--name',
+            'run', '--init-weights', f'{tmp}/init.pt', '--cache',
+            f'{tmp}/slices.bin', '--epochs', '2', '--coordinator',
+            coordinator, '--num-processes', str(world), '--process-id',
+            str(rank)]
+    if DEVICE == 'cpu':
+        argv += ['--device', 'cpu']
+    warp.launch_count = 0
+    hist = train_cli.main(argv)
+    out['warp_launches'] = warp.launch_count
+    out['cli_warp_launches'] = hist['warp_launches']
+    out['train_seconds'] = hist['train_seconds']
+    out['train_loss'], out['val_loss'] = hist['train_loss'], hist['val_loss']
+    out['save_dir'] = hist['save_dir']
+    if DEVICE == 'cuda':
+        out['cli_peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print('DIST ' + json.dumps(out), flush=True)
+    return 0
+
+
+def run_ranks(tmp, world, env):
+    """Start ``world`` rank processes of this script and wait for all,
+    killing every one still running after DIST_TIMEOUT s; returns each
+    rank's DIST result."""
+    from unet_tpu_torch.core.mesh import free_port
+    coordinator = f'127.0.0.1:{free_port()}'
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--dist-worker', DEVICE,
+         one_rank_config(tmp), coordinator, str(r), str(world), tmp],
+        env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    with open(f'{tmp}/dist_ranks.log', 'w') as f:
+        f.write('\n'.join(outs))
+    results = []
+    for p, out in zip(procs, outs):
+        lines = [l for l in out.splitlines() if l.startswith('DIST ')]
+        if p.returncode != 0 or not lines:
+            raise RuntimeError(f'rank exited with {p.returncode}:\n'
+                               + out[-6000:])
+        results.append(json.loads(lines[-1][5:]))
+    return results
+
+
+def distributed_path(card, tmp, blob, single):
+    """Two ranks on the one card over gloo: the one-step parity against
+    this process, the train CLI's 2-epoch run against the single-process
+    ``--cache`` run (``single``, same init, same cache), one run
+    directory, warp launches on each rank, step and collective times."""
+    import torch
+    from unet_tpu_torch.core.distributed import BACKEND_ENV
+    parity_batch(blob, f'{tmp}/parity.npz')
+    want = one_step(f'{tmp}/init.pt', f'{tmp}/parity.npz', 0, 1)
+    log(f'dist: NCCL refuses two ranks on one device, so the two ranks '
+        f'share the card over gloo ({BACKEND_ENV}=gloo); one card, so no '
+        f'number below is a scaling figure')
+    env = dict(os.environ, **{BACKEND_ENV: 'gloo'})
+    t0 = time.perf_counter()
+    ranks = run_ranks(tmp, 2, env)
+    wall = time.perf_counter() - t0
+    held = []  # every reading is printed before the first assert
+    for dtype, (loss, gnorm) in want.items():
+        tol = DIST_TOL[dtype]
+        for r in ranks:
+            got_loss, got_norm = r['parity'][dtype]
+            rel_loss = abs(got_loss / loss - 1)
+            rel_norm = abs(got_norm / gnorm - 1)
+            log(f'dist: one-step parity {dtype} rank {r["rank"]}: loss '
+                f'{got_loss:.7f} vs one process {loss:.7f} (rel '
+                f'{rel_loss:.2e}), grad norm {got_norm:.6f} vs {gnorm:.6f} '
+                f'(rel {rel_norm:.2e}); tolerance rel {tol["loss"]} / '
+                f'{tol["gnorm"]}')
+            held.append((rel_loss <= tol['loss'] and rel_norm <= tol['gnorm'],
+                         dtype, r['rank']))
+    runs = sorted(os.listdir(f'{tmp}/dist'))
+    for r in ranks:
+        log(f'dist: rank {r["rank"]}: {r["warp_launches"]} warp kernel '
+            f'launches (its rows of {TRAIN_SUPERBATCHES} super-batches); '
+            f'train loss {r["train_loss"]}, val loss {r["val_loss"]}')
+    drift = weight_drift(tmp, single, f'{tmp}/dist/run')
+    d_train = abs(ranks[0]['train_loss'][-1] - single['train_loss'][-1])
+    d_val = abs(ranks[0]['val_loss'][-1] - single['val_loss'][-1])
+    log(f'dist: 2 epochs on 2 ranks against one process (same init, '
+        f'cache and draws): |w2 - w1| / |w1 - w0| = {drift:.4f} (bound '
+        f'{DIST_DRIFT}), epoch-2 train loss {d_train:.5f} and val loss '
+        f'{d_val:.5f} apart (bound {DIST_LOSS}); only rank 0 wrote a run '
+        f'directory: {runs}')
+    assert all(ok for ok, *_ in held), [h for h in held if not h[0]]
+    assert runs == ['run'], runs
+    assert all(r['save_dir'] == f'{tmp}/dist/run' for r in ranks)
+    for r in ranks:
+        # a CPU rehearsal takes the warp's plain version, never the kernel
+        assert r['warp_launches'] == TRAIN_SUPERBATCHES or DEVICE == 'cpu', r
+        # the CLI's own report of every rank's launches agrees
+        assert r['cli_warp_launches'] == [x['warp_launches'] for x in ranks]
+        assert r['train_loss'] == ranks[0]['train_loss']
+        assert all(np.isfinite(r['train_loss'] + r['val_loss']))
+    assert drift <= DIST_DRIFT and d_train <= DIST_LOSS and d_val <= DIST_LOSS
+    if DEVICE == 'cuda':
+        for r in ranks:
+            log(f'TIME 2-rank step rank {r["rank"]} (gloo, both ranks on '
+                f'one card; {SUPER // 2} of the {SUPER} slices of a '
+                f'super-batch): optimizer step {r["step_ms"]:.2f} ms, of '
+                f'which the flat gradient all-reduce ({r["grad_mb"]:.1f} MB) '
+                f'{r["grad_allreduce_ms"]:.2f} ms alone and '
+                f'{r["bn_allreduces"]} BatchNorm all-reduces of '
+                f'{r["bn_allreduce_ms"]:.3f} ms each alone '
+                f'({r["bn_allreduces"] * r["bn_allreduce_ms"]:.1f} ms); CLI '
+                f'epochs ' + ', '.join(f'{t:.3f} s' for t in
+                                       r['train_seconds'])
+                + f'; peak device memory {r["step_peak_gib"]:.2f} GiB in the '
+                f'step, {r["cli_peak_gib"]:.2f} GiB in the CLI run  [{card}]')
+    log(f'dist: 2 rank processes ran in {wall:.1f} s')
+    if DEVICE == 'cuda' and torch.cuda.device_count() > 1:
+        nccl_path(card, tmp, blob, single, torch.cuda.device_count())
+    else:
+        log('dist: one GPU, so the NCCL route (one rank per GPU) was not run')
+    return ranks
+
+
+def weight_drift(tmp, single, run_dir):
+    """|w - w1| / |w1 - w0| over the weights and biases: the distance of
+    ``run_dir``'s last weights from the single-process run's, in units
+    of how far that run moved from the init."""
+    import torch
+    from unet_tpu_torch.utils.torch_port import load_torch_checkpoint
+    init, _, _ = load_torch_checkpoint(f'{tmp}/init.pt')
+    one, _, _ = load_torch_checkpoint(
+        f'{single["save_dir"]}/weights/last/model.pt')
+    other, _, _ = load_torch_checkpoint(f'{run_dir}/weights/last/model.pt')
+    keys = [k for k in init if k.endswith(('weight', 'bias'))]
+
+    def norm(a, b):
+        return float(torch.sqrt(sum(torch.sum((a[k] - b[k]).double() ** 2)
+                                    for k in keys)))
+
+    return norm(other, one) / norm(one, init)
+
+
+def nccl_path(card, tmp, blob, single, gpus):
+    """One rank per GPU, spawned by one train CLI command through
+    ``tpu.data_parallel`` (the largest count of ``gpus`` that divides the
+    global batch): each rank's warp launches from the CLI's own report,
+    the weights held loosely against the single-process run. NCCL on the
+    card; a CPU rehearsal takes gloo."""
+    import yaml
+    cfg = _train_cfg()
+    batch = cfg['data']['batch_size']
+    n = max(d for d in range(1, gpus + 1) if batch % d == 0)
+    cfg['tpu']['data_parallel'] = n
+    path = f'{tmp}/nccl.yaml'
+    with open(path, 'w') as f:
+        yaml.safe_dump(cfg, f)
+    env = {k: v for k, v in os.environ.items()
+           if k != 'UNET_TORCH_DIST_BACKEND'}
+    argv = ['--config', path, '--project', f'{tmp}/nccl', '--name', 'run',
+            '--init-weights', f'{tmp}/init.pt', '--cache', blob, '--epochs',
+            '2']
+    if DEVICE == 'cpu':
+        argv += ['--device', 'cpu']
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'unet_tpu_torch.cli.train', *argv], env=env,
+        capture_output=True, text=True, timeout=DIST_TIMEOUT)
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    lines = [l.strip() for l in proc.stdout.splitlines()]
+    backend = 'nccl' if DEVICE == 'cuda' else 'gloo'
+    line = [l for l in lines if l.startswith('Data parallel')]
+    assert line == [f'Data parallel: {n} ranks, {backend} backend'], line
+    prefix = 'Warp kernel launches per rank: '
+    launches = json.loads([l for l in lines
+                           if l.startswith(prefix)][-1][len(prefix):])
+    hist = json.loads(open(f'{tmp}/nccl/run/history.json').read())
+    drift = weight_drift(tmp, single, f'{tmp}/nccl/run')
+    d_val = abs(hist['val_loss'][-1] - single['val_loss'][-1])
+    epochs = [l for l in lines if 'Train Loss' in l]
+    log(f'dist: {backend} route ran: {line[0]}, one rank per device, from '
+        f'one command in {wall:.1f} s; warp kernel launches per rank '
+        f'{launches}; |w - w1| / |w1 - w0| = {drift:.4f} (bound '
+        f'{DIST_DRIFT}), epoch-2 val loss {d_val:.5f} apart; epochs: '
+        f'{epochs}  [{card}]')
+    assert len(launches) == n
+    # a CPU rehearsal takes the warp's plain version, never the kernel
+    assert (all(k == TRAIN_SUPERBATCHES for k in launches)
+            or DEVICE == 'cpu'), launches
+    assert drift <= DIST_DRIFT and d_val <= DIST_LOSS
+
+
+def _train_cfg():
+    from unet_tpu_torch.utils.config import load_config
+    return load_config(TRAIN_CONFIG)
+
+
+def _loss_fn(cfg):
+    from unet_tpu_torch.train.losses import create_loss_function
+    lc = cfg['loss']
+    return create_loss_function(
+        lc['type'], ce_weight=lc['ce_weight'], dice_weight=lc['dice_weight'],
+        balanced_class_weight=lc['balanced_class_weight'])
 
 
 # ---------------------------------------------------------------- times
@@ -1323,9 +1837,11 @@ def time_train_parts(card):
     (8 microbatches of 4 forward and backward, clip, AdamW) in bf16."""
     import torch
     from unet_tpu_torch.data.augmentations import (AugmentConfig,
-                                                   augment_batch_seeded)
+                                                   augment_batch_seeded,
+                                                   draw_augment_params,
+                                                   generator_for_step,
+                                                   local_rows)
     from unet_tpu_torch.models import create_model
-    from unet_tpu_torch.train.losses import create_loss_function
     from unet_tpu_torch.train.trainer import (clip_by_global_norm,
                                               create_optimizer,
                                               make_train_step)
@@ -1334,6 +1850,23 @@ def time_train_parts(card):
     img, msk, _ = warp_cases(seed=1)
     aug = AugmentConfig.from_yaml(cfg['augmentation'])
     t_aug = time_ms(lambda: augment_batch_seeded(img, msk, 43, 0, aug), 10)
+    # a rank of two draws the whole super-batch's parameters and applies
+    # its half: the draws alone, global and half, and the rank's call
+    a = cfg['train']['accumulation_steps']
+    dev = torch.device(DEVICE)
+
+    def draws(n):
+        return draw_augment_params(n, IMG, IMG, aug,
+                                   generator_for_step(43, 0, dev), dev)
+
+    t_draw = time_ms(lambda: draws(SUPER), 10)
+    t_draw_half = time_ms(lambda: draws(SUPER // 2), 10)
+    rows = local_rows(a, SUPER // a // 2, 0, 2, dev)
+    img_r, msk_r = img[rows].contiguous(), msk[rows].contiguous()
+    t_aug_rank = time_ms(lambda: augment_batch_seeded(
+        img_r, msk_r, 43, 0, aug, local_slice=(0, 2), groups=a), 10)
+    draw_mb = sum(t.numel() * t.element_size() for t in
+                  vars(draws(SUPER)).values()) / 1e6
 
     m = cfg['model']
     model = create_model(m['type'], base_features=m['base_features'],
@@ -1342,10 +1875,7 @@ def time_train_parts(card):
     model = model.to(DEVICE, memory_format=torch.channels_last)
     tc = cfg['train']
     opt = create_optimizer(model, tc['lr'], tc['weight_decay'])
-    lc = cfg['loss']
-    loss_fn = create_loss_function(
-        lc['type'], ce_weight=lc['ce_weight'], dice_weight=lc['dice_weight'],
-        balanced_class_weight=lc['balanced_class_weight'])
+    loss_fn = _loss_fn(cfg)
     step = make_train_step(model, loss_fn, opt,
                            tc['accumulation_steps'],
                            grad_clip=tc['grad_clip'])
@@ -1371,6 +1901,10 @@ def time_train_parts(card):
     log(f'TIME augmentation program {SUPER}x{IMG}^2 per super-batch '
         f'(draws, elastic smoothing, warp, photometric): {t_aug:.3f} ms  '
         f'[{card}]')
+    log(f'TIME augmentation draws: the whole {SUPER}-slice super-batch\'s '
+        f'parameters ({draw_mb:.1f} MB) {t_draw:.3f} ms, {SUPER // 2} '
+        f'slices\' {t_draw_half:.3f} ms; one rank of two (global draws, '
+        f'its {SUPER // 2} rows augmented) {t_aug_rank:.3f} ms  [{card}]')
     log(f'TIME optimizer step (8 x b4 {IMG}^2 bf16 forward+backward, clip, '
         f'AdamW): {t_step:.2f} ms = {SUPER / t_step * 1e3:.2f} slices/s; '
         f'one microbatch forward+backward {t_fb:.2f} ms, clip+AdamW '
@@ -1428,34 +1962,39 @@ def main():
 
     t0 = time.perf_counter()
     built = _build.build_all()
-    log(f'built {", ".join(built)} in {time.perf_counter() - t0:.1f} s')
+    PHASE_SECONDS['build'] = round(time.perf_counter() - t0, 1)
+    log(f'built {", ".join(built)} in {PHASE_SECONDS["build"]} s')
     for name in built:
         for line in (_build.BUILD / f'{name}.log').read_text().splitlines():
             if 'registers' in line or 'spill' in line:
                 log(f'  ptxas {name}: {line.strip()}')
 
-    errs = check_gates()
-    warp_err = check_warp()
-    check_conv_edges()
-    model, x = check_model(card)
-    tc = check_convs(model, x, card)
+    errs = timed('check_gates', check_gates)
+    warp_err = timed('check_warp', check_warp)
+    timed('check_conv_edges', check_conv_edges)
+    model, x = timed('check_model', check_model, card)
+    tc = timed('check_convs', check_convs, model, x, card)
     del x
     torch.cuda.empty_cache()
-    launches = serve_main_path(model, card)
-    predict_path(model, card)
+    launches = timed('serve', serve_main_path, model, card)
+    timed('predict', predict_path, model, card)
     del model
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        warp_launches, run_dir = train_main_path(card, tmp)
+        warp_launches, run_dir = timed('train', train_main_path, card, tmp)
         torch.cuda.empty_cache()
-        resume_path(card, tmp, run_dir)
+        timed('resume', resume_path, card, tmp, run_dir)
         torch.cuda.empty_cache()
-        overfit_path(card, tmp)
+        timed('overfit', overfit_path, card, tmp)
+        torch.cuda.empty_cache()
+        blob, cached = timed('cache', cache_path, card, tmp)
+        torch.cuda.empty_cache()
+        timed('two_ranks', distributed_path, card, tmp, blob, cached)
     torch.cuda.empty_cache()
-    t = time_gates(card, errs)
-    tw = time_warp(card, warp_err)
-    time_launch_host(card)
-    time_train_parts(card)
+    t = timed('time_gates', time_gates, card, errs)
+    tw = timed('time_warp', time_warp, card, warp_err)
+    timed('time_launch_host', time_launch_host, card)
+    timed('time_train_parts', time_train_parts, card)
 
     kernels = [{
         'name': 'attention_gate',
@@ -1497,6 +2036,7 @@ def main():
         'bound_by': tc['bound_by'],
         'library_ms': tc['library_ms'],  # F.conv2d (cuDNN), bf16
     }]
+    log('phase seconds (host clock): ' + json.dumps(PHASE_SECONDS))
     log(f'(kernel times: the four 512^2 gates of one bf16 forward at batch '
         f'{BATCH}, summed; the warp of one {SUPER}x{IMG}^2 super-batch; the '
         f'{N_CONVS} eligible 3x3 convs of one bf16 forward at batch {BATCH}, '
@@ -1510,4 +2050,6 @@ def main():
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--dist-worker']:
+        sys.exit(dist_worker(sys.argv[2:]))
     sys.exit(main())

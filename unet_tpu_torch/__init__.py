@@ -24,12 +24,24 @@ Where each part of ``unet_tpu`` lives here:
                                       unet_tpu; all three kernels built
                                       by ops/_build.py)
   unet_tpu/models/{layers,unet}.py -> models/{layers,unet}.py (train and
-                                      eval mode)
+                                      eval mode; global-batch BatchNorm
+                                      statistics over the ranks)
   unet_tpu/data/augmentations.py   -> data/augmentations.py (draws split
                                       from the deterministic apply)
   unet_tpu/data/dataset.py         -> data/dataset.py
-  unet_tpu/data/cache.py           -> data/cache.py (native decode of
-                                      request bodies and of files)
+  unet_tpu/data/cache.py           -> data/cache.py (build_cache, native
+                                      or PIL, byte-identical blobs;
+                                      CachedSliceDataset; native decode
+                                      of request bodies and of files)
+  unet_tpu/core/distributed.py     -> core/distributed.py (a
+                                      torch.distributed process group,
+                                      one process per rank; nccl for
+                                      CUDA, gloo for CPU or when
+                                      UNET_TORCH_DIST_BACKEND=gloo)
+  unet_tpu/core/mesh.py            -> core/mesh.py (ranks over local
+                                      devices, replicate from rank 0,
+                                      local ranks spawned; no device
+                                      mesh: each rank is a process)
   unet_tpu/train/losses.py         -> train/losses.py
   unet_tpu/train/metrics.py        -> train/metrics.py
   unet_tpu/train/schedules.py      -> train/schedules.py
@@ -49,14 +61,16 @@ Where each part of ``unet_tpu`` lives here:
                                       model loading, pre/postprocessing;
                                       one GPU)
   unet_tpu/cli/serve.py            -> cli/serve.py (one GPU)
-  unet_tpu/cli/train.py            -> cli/train.py (one GPU; --resume,
-                                      --profile-dir, plots)
+  unet_tpu/cli/train.py            -> cli/train.py (--resume,
+                                      --profile-dir, plots, --cache;
+                                      data parallel over ranks:
+                                      --coordinator, --num-processes,
+                                      --process-id, tpu.data_parallel)
   unet_tpu/cli/overfit.py          -> cli/overfit.py
 
-Still to port, in order: the slice cache (data/cache.py's
-CachedSliceDataset and build_cache, the train CLI's --cache); multi-GPU
-(core/mesh.py, core/distributed.py, predict's --spatial-shard); the
-port's bench; the export CLI.
+Still to port, in order: multi-GPU inference (the serve CLI's
+data-parallel branch, predict's batch split and --spatial-shard); the
+export CLI; the port's bench.
 
 Not ported, because they are TPU lowerings of math ATen/cuDNN already
 do: ops/s2d.py and IncPoolS2D (UNET_TPU_S2D, UNET_TPU_S2D_LEVEL),

@@ -24,16 +24,24 @@ Counterpart of ``unet_tpu/cli/train.py``, with its flags and epoch loop:
     first epoch's training into DIR;
   * at the end, ``training_curves.png`` and ``val_predictions.png``
     (the best weights on up to 8 validation slices with tumor), or one
-    line saying the plots were skipped where matplotlib is missing.
+    line saying the plots were skipped where matplotlib is missing;
+  * ``--cache PATH`` (or ``data.cache``) streams the slices from a
+    memory-mapped slice cache, built from ``data.root`` at ``img_size``
+    when the blob does not exist yet;
+  * data parallel over several ranks (``core/mesh.py``): ``--coordinator
+    HOST:PORT --num-processes N --process-id I`` joins N processes, and
+    ``tpu.data_parallel`` ranks per process (-1: one per local GPU) are
+    spawned by this command. Every rank loads its rows of each global
+    batch; BatchNorm statistics, gradients and validation counts are the
+    global batch's; rank 0 alone writes logs, the run directory,
+    checkpoints, ``history.json`` and plots, and decides ``--resume
+    auto``.
 
 Runs on CUDA unless ``--device cpu`` (or ``device: cpu`` in the config)
 asks for the CPU; where CUDA is asked for and absent it raises.
 
     python -m unet_tpu_torch.cli.train --config configs/lung_tumor.yaml \\
         --synthetic --epochs 2
-
-``--cache`` and the multi-host flags are not ported yet: each stops
-argument parsing with a message.
 """
 
 from __future__ import annotations
@@ -41,26 +49,12 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
-
-NOT_PORTED = {
-    '--cache': 'the slice cache',
-    '--coordinator': 'multi-host training',
-    '--num-processes': 'multi-host training',
-    '--process-id': 'multi-host training',
-}
-
-
-class _NotPorted(argparse.Action):
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f'{option_string} ({NOT_PORTED[option_string]}) is not '
-                     'ported to unet_tpu_torch yet; the JAX CLI '
-                     '(python -m unet_tpu.cli.train) has it')
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description='Train lung tumor segmentation')
@@ -99,9 +93,21 @@ def parse_args(argv=None):
     p.add_argument('--debug-nans', action='store_true',
                    help='fail on the first non-finite loss (reads each '
                         'super-batch loss back, which syncs)')
-    for flag in NOT_PORTED:
-        p.add_argument(flag, action=_NotPorted, help=argparse.SUPPRESS)
-    return p.parse_args(argv)
+    p.add_argument('--cache', type=str, default=None,
+                   help='slice-cache blob path: built (natively where '
+                        'the library loads) if missing, then memory-mapped')
+    p.add_argument('--coordinator', type=str, default=None,
+                   help='multi-process: rank 0\'s host:port')
+    p.add_argument('--num-processes', type=int, default=None,
+                   help='multi-process: total process count')
+    p.add_argument('--process-id', type=int, default=None,
+                   help='multi-process: this process index')
+    args = p.parse_args(argv)
+    if args.num_processes and args.num_processes > 1 and (
+            not args.coordinator or args.process_id is None):
+        p.error('--num-processes above 1 needs --coordinator and '
+                '--process-id')
+    return args
 
 
 def apply_overrides(config, args):
@@ -129,18 +135,74 @@ def apply_overrides(config, args):
 
 def main(argv=None):
     """Run the training; returns the epoch history (the dict written to
-    ``history.json``) with the run directory under ``'save_dir'`` and
-    each epoch's train wall time under ``'train_seconds'``."""
+    ``history.json``) with the run directory under ``'save_dir'``, each
+    epoch's train wall time under ``'train_seconds'`` and each rank's
+    warp kernel launches under ``'warp_launches'``. Where this host runs
+    several ranks, they run in spawned processes and local rank 0's
+    result is returned."""
     args = parse_args(argv)
 
     from unet_tpu_torch import resolve_device
+    from unet_tpu_torch.core.mesh import free_port, local_degree
+    from unet_tpu_torch.utils.config import load_config
+
+    config = apply_overrides(load_config(args.config), args)
+    device = resolve_device(str(config.get('device') or '') or None)
+    degree = local_degree(config.get('tpu', {}).get('data_parallel', -1),
+                          device)
+    if degree == 1:
+        return _rank_main(0, args, config, device.type, 1, args.coordinator)
+    coordinator = (args.coordinator if (args.num_processes or 1) > 1
+                   else f'127.0.0.1:{free_port()}')
+    with tempfile.TemporaryDirectory() as tmp:
+        result = Path(tmp) / 'result.json'
+        # raises when a rank fails, after stopping the others
+        torch.multiprocessing.spawn(
+            _rank_main, (args, config, device.type, degree, coordinator,
+                         str(result)), nprocs=degree)
+        return json.loads(result.read_text())
+
+
+def _rank_main(local_index, args, config, device_type, degree,
+               coordinator, result_path=None):
+    """One rank: join the process group where there are several ranks,
+    train, leave the group; local rank 0 writes its result as JSON to
+    ``result_path`` where one is given."""
+    import torch.distributed as dist
+
+    from unet_tpu_torch.core.distributed import init_distributed
+    from unet_tpu_torch.core.mesh import global_rank, rank_device
+
+    world = (args.num_processes or 1) * degree
+    rank = global_rank(args.process_id or 0, degree, local_index)
+    device = rank_device(device_type, local_index)
+    if device.type == 'cuda':
+        torch.cuda.set_device(device)
+    init_distributed(coordinator, world, rank, device)
+    try:
+        result = _train(args, config, device, rank, world)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if result_path and local_index == 0:
+        Path(result_path).write_text(json.dumps(result))
+    return result
+
+
+def _train(args, config, device, rank, world):
+    from unet_tpu_torch.core.distributed import (all_reduce_sum_, barrier,
+                                                 broadcast_from_main,
+                                                 gather_objects)
+    from unet_tpu_torch.core.mesh import check_global_batch, replicate
     from unet_tpu_torch.data.augmentations import (AugmentConfig,
                                                    augment_batch_seeded,
                                                    normalize_batch)
+    from unet_tpu_torch.data.cache import CachedSliceDataset, build_cache
     from unet_tpu_torch.data.dataset import (BatchLoader, SliceDataset,
                                              SyntheticSliceDataset,
                                              prefetch_to_device)
     from unet_tpu_torch.models import create_model
+    from unet_tpu_torch.ops import warp
     from unet_tpu_torch.train.callbacks import (CheckpointManager,
                                                 EarlyStopping)
     from unet_tpu_torch.train.losses import create_loss_function
@@ -151,55 +213,64 @@ def main(argv=None):
                                               make_train_step)
     from unet_tpu_torch.utils.config import (describe_devices,
                                              get_nested_metric,
-                                             increment_path, load_config,
-                                             set_seed, validate_config)
+                                             increment_path, set_seed,
+                                             validate_config)
     from unet_tpu_torch.utils import plots
     from unet_tpu_torch.utils.profiling import nan_guard, trace
     from unet_tpu_torch.utils.torch_port import load_torch_checkpoint
 
-    config = apply_overrides(load_config(args.config), args)
+    is_main = rank == 0
+    warp_before = warp.launch_count
+    log = print if is_main else (lambda *a, **k: None)
     validate_config(config)
-    device = resolve_device(str(config.get('device') or '') or None)
     seed = config.get('seed', 42)
     set_seed(seed)
-    print(f'Using device: {describe_devices(device)}')
+    log(f'Using device: {describe_devices(device)}')
+    if world > 1:
+        import torch.distributed as dist
+        log(f'Data parallel: {world} ranks, {dist.get_backend()} backend')
 
     guard = nan_guard(args.debug_nans)
 
     # ---- resume target: resolved before the run directory, since
-    # `--resume auto` continues inside the newest existing run ----
+    # `--resume auto` continues inside the newest existing run. Only rank
+    # 0 reads its filesystem; the decision is broadcast ----
     resume_path = args.resume
     auto_run_dir = None
     if resume_path == 'auto':
-        found = CheckpointManager.find_auto_resume(
+        found = (CheckpointManager.find_auto_resume(
             config['output']['save_dir'],
-            config['output']['experiment_name'])
+            config['output']['experiment_name']) if is_main else None)
+        found = broadcast_from_main(found)
         if found is None:
-            print('--resume auto: no previous checkpoint found, starting '
-                  'fresh')
+            log('--resume auto: no previous checkpoint found, starting '
+                'fresh')
             resume_path = None
         else:
             resume_path = str(found)
             auto_run_dir = found.parent.parent
-            print(f'--resume auto: continuing {auto_run_dir}')
+            log(f'--resume auto: continuing {auto_run_dir}')
     if resume_path and Path(resume_path).is_file():  # .../model.pt
         resume_path = str(Path(resume_path).parent)
 
-    save_dir = auto_run_dir or increment_path(
-        Path(config['output']['save_dir'])
-        / config['output']['experiment_name'])
+    # ---- run directory: rank 0 owns every file the run writes ----
+    save_dir = None
+    if is_main:
+        save_dir = auto_run_dir or increment_path(
+            Path(config['output']['save_dir'])
+            / config['output']['experiment_name'])
+        (save_dir / 'weights').mkdir(parents=True, exist_ok=True)
+    save_dir = Path(broadcast_from_main(str(save_dir) if is_main else None))
     weights_dir = save_dir / 'weights'
-    weights_dir.mkdir(parents=True, exist_ok=True)
-    print(f'Results will be saved to: {save_dir}')
+    log(f'Results will be saved to: {save_dir}')
 
     # ---- data ----
     data_cfg = config['data']
-    if data_cfg.get('cache'):
-        raise ValueError('data.cache (the slice cache) is not ported to '
-                         'unet_tpu_torch yet')
     img_size = data_cfg['img_size']
     batch_size = data_cfg['batch_size']
+    check_global_batch(batch_size, world)
     split_kw = dict(val_ratio=data_cfg.get('val_ratio', 0.2), seed=seed)
+    cache_path = args.cache or data_cfg.get('cache')
     if args.synthetic:
         ds_kwargs = dict(num_volumes=args.synthetic_volumes,
                          slices_per_volume=args.synthetic_slices,
@@ -210,18 +281,31 @@ def main(argv=None):
             ds_kwargs['tumor_radius'] = (lo, hi)
         train_ds = SyntheticSliceDataset(split='train', **ds_kwargs)
         val_ds = SyntheticSliceDataset(split='val', **ds_kwargs)
+    elif cache_path:
+        if is_main and not Path(cache_path).exists():
+            log(f'Building slice cache at {cache_path} ...')
+            build_cache(data_cfg['root'], cache_path, img_size=img_size)
+        barrier()  # the other ranks wait for rank 0's blob
+        train_ds = CachedSliceDataset(cache_path, 'train', **split_kw)
+        val_ds = CachedSliceDataset(cache_path, 'val', **split_kw)
     else:
         train_ds = SliceDataset(data_cfg['root'], 'train',
                                 img_size=img_size, **split_kw)
         val_ds = SliceDataset(data_cfg['root'], 'val', img_size=img_size,
                               **split_kw)
     workers = data_cfg.get('num_workers', 8)
+    # every rank computes the same global order and loads its rows of
+    # each batch; validation tails are padded to the full batch and the
+    # pad rows masked in the eval step
+    local = (rank, world) if world > 1 else None
     train_loader = BatchLoader(train_ds, batch_size, shuffle=True,
                                drop_last=True, seed=seed,
-                               num_threads=workers, raw_uint8=True)
+                               num_threads=workers, raw_uint8=True,
+                               local_slice=local)
     val_loader = BatchLoader(val_ds, batch_size, shuffle=False,
-                             num_threads=workers, raw_uint8=True)
-    print(f'Train samples: {len(train_ds)}, Val samples: {len(val_ds)}')
+                             num_threads=workers, raw_uint8=True,
+                             local_slice=local, pad_tail=world > 1)
+    log(f'Train samples: {len(train_ds)}, Val samples: {len(val_ds)}')
 
     aug_yaml = config.get('augmentation', {})
     augment_enabled = aug_yaml.get('enabled', True)
@@ -244,12 +328,12 @@ def main(argv=None):
                          use_fused_gate=tpu_cfg.get('fused_attention_gate'),
                          generator=torch.Generator().manual_seed(seed))
     if args.init_weights:
-        print(f'Initializing weights from {args.init_weights}')
+        log(f'Initializing weights from {args.init_weights}')
         state, _, _ = load_torch_checkpoint(args.init_weights)
         model.load_state_dict(state, strict=True)
-    model = model.to(device, memory_format=torch.channels_last)
+    model = replicate(model.to(device, memory_format=torch.channels_last))
     n_classes = model_cfg['n_classes']
-    print(f'Model parameters: {model.get_num_params():,}')
+    log(f'Model parameters: {model.get_num_params():,}')
 
     ema_cfg = config.get('ema', {})
     use_ema = ema_cfg.get('enabled', True)
@@ -257,8 +341,8 @@ def main(argv=None):
     ema_warmup_epochs = ema_cfg.get('warmup_epochs', 5) if use_ema else 0
     ema = ema_reinit(model) if use_ema else None
     if use_ema:
-        print(f'Using EMA with decay={ema_decay}, '
-              f'warmup={ema_warmup_epochs} epochs')
+        log(f'Using EMA with decay={ema_decay}, '
+            f'warmup={ema_warmup_epochs} epochs')
 
     loss_cfg = config['loss']
     loss_fn = create_loss_function(
@@ -268,8 +352,8 @@ def main(argv=None):
         class_weights=loss_cfg.get('class_weights'),
         balanced_class_weight=loss_cfg.get('balanced_class_weight', 0.5),
         deep_supervision=deep_supervision)
-    print(f"Loss function: {loss_cfg['type']}"
-          + (' + Deep Supervision' if deep_supervision else ''))
+    log(f"Loss function: {loss_cfg['type']}"
+        + (' + Deep Supervision' if deep_supervision else ''))
 
     train_cfg = config['train']
     base_lr = train_cfg['lr']
@@ -277,15 +361,18 @@ def main(argv=None):
                            weight_decay=train_cfg.get('weight_decay', 1e-4))
     accum = train_cfg.get('accumulation_steps', 1)
     if accum > 1:
-        print(f'Gradient accumulation: {accum} steps '
-              f'(effective batch={batch_size * accum})')
+        log(f'Gradient accumulation: {accum} steps '
+            f'(effective batch={batch_size * accum})')
     train_step = make_train_step(model, loss_fn, opt, accum_steps=accum,
                                  ema_decay=ema_decay, use_ema=use_ema,
                                  grad_clip=train_cfg.get('grad_clip', 0.0))
-    eval_step = make_eval_step(model, loss_fn, n_classes)
+    weighted = world > 1
+    eval_step = make_eval_step(model, loss_fn, n_classes,
+                               with_weights=weighted)
     # the EMA weights are validated in a shadow copy of the model
     shadow = copy.deepcopy(model) if use_ema else None
-    eval_shadow = (make_eval_step(shadow, loss_fn, n_classes)
+    eval_shadow = (make_eval_step(shadow, loss_fn, n_classes,
+                                  with_weights=weighted)
                    if use_ema else None)
 
     # ---- scheduler / callbacks ----
@@ -300,16 +387,18 @@ def main(argv=None):
     checkpoint = CheckpointManager(
         weights_dir, monitor=monitor, mode=es_cfg.get('mode', 'max'),
         save_last=config['output'].get('save_last', True),
-        save_best=config['output'].get('save_best', True))
+        save_best=config['output'].get('save_best', True)) if is_main \
+        else None
     metrics = SegmentationMetrics(n_classes, ['background', 'tumor'])
-    print(f'Monitoring metric: {monitor}')
+    log(f'Monitoring metric: {monitor}')
 
-    # ---- resume ----
+    # ---- resume: rank 0 reads the checkpoint and broadcasts it ----
     start_epoch = 0
     aug_step = 0
     if resume_path:
-        print(f'Resuming from {resume_path}')
-        ckpt = CheckpointManager.load(resume_path)
+        log(f'Resuming from {resume_path}')
+        ckpt = broadcast_from_main(
+            CheckpointManager.load(resume_path) if is_main else None)
         meta, ts = ckpt['meta'], ckpt['train_state']
         model.load_state_dict(ts['model_state_dict'], strict=True)
         opt.load_state_dict(ckpt['payload']['optimizer_state_dict'])
@@ -325,12 +414,12 @@ def main(argv=None):
         start_epoch = int(meta.get('epoch', -1)) + 1
         aug_step = int(ts.get('aug_step', 0))
         train_loader.skip_epochs(start_epoch)
-        print(f'Resumed from epoch {start_epoch} (optimizer step '
-              f'{train_step.steps})')
+        log(f'Resumed from epoch {start_epoch} (optimizer step '
+            f'{train_step.steps})')
         # seed the best-tracker from the run's best checkpoint, so a
         # post-resume epoch cannot demote a better pre-resume 'best'
         best_dir = Path(resume_path).parent / 'best'
-        if (best_dir / 'meta.json').exists():
+        if checkpoint is not None and (best_dir / 'meta.json').exists():
             prev = CheckpointManager.read_meta(best_dir)
             if prev.get('monitor_value') is not None:
                 checkpoint.best_value = prev['monitor_value']
@@ -340,20 +429,37 @@ def main(argv=None):
                                'val_iou', 'val_accuracy', 'tumor_dice',
                                'lr')}
     train_seconds = []
+    local_batch = batch_size // world
 
     def run_validation(step_fn):
+        """Metrics of the global validation set on every rank: each rank
+        sums its confusion matrices, and per batch its loss times its
+        real rows; both are summed over the ranks once, at the end."""
         metrics.reset()
-        loss_sum, cm_sum, n_batches = None, None, 0
-        for images, masks in prefetch_to_device(val_loader, device):
+        losses, real_rows, cm_sum = [], [], None
+        for b, (images, masks) in enumerate(
+                prefetch_to_device(val_loader, device)):
             images = normalize_batch(images.float() / 255.0)
-            loss, cm = step_fn(images, masks)
-            loss_sum = loss if loss_sum is None else loss_sum + loss
+            if weighted:
+                real = min(max(val_loader.tail_valid(b) - rank * local_batch,
+                               0), local_batch)
+                w = torch.zeros(local_batch, device=device)
+                w[:real] = 1.0
+                loss, cm = step_fn(images, masks, w)
+                losses.append(loss * real)
+                real_rows.append(val_loader.tail_valid(b))
+            else:
+                loss, cm = step_fn(images, masks)
+                losses.append(loss)
             cm_sum = cm if cm_sum is None else cm_sum + cm
-            n_batches += 1
         if cm_sum is not None:
-            metrics.update_from_matrix(cm_sum)
+            metrics.update_from_matrix(all_reduce_sum_(cm_sum))
         results = metrics.compute()
-        results['loss'] = (float(loss_sum) / n_batches if n_batches
+        if weighted and losses:
+            losses = list(all_reduce_sum_(torch.stack(losses).float())
+                          / torch.tensor(real_rows, dtype=torch.float32,
+                                         device=device))
+        results['loss'] = (float(sum(losses)) / len(losses) if losses
                            else 0.0)
         return results
 
@@ -378,13 +484,14 @@ def main(argv=None):
         if pending:
             yield emit(pending)
 
-    print('\nStarting training...')
-    print('=' * 60)
+    log('\nStarting training...')
+    log('=' * 60)
     for epoch in range(start_epoch, epochs):
         lr = scheduler(epoch) if sched_kind == 'epoch' else scheduler.lr
-        print(f'\nEpoch {epoch + 1}/{epochs} (lr={lr:.2e})')
+        log(f'\nEpoch {epoch + 1}/{epochs} (lr={lr:.2e})')
         t0 = time.time()
-        profiling = bool(args.profile_dir) and epoch == start_epoch
+        profiling = (bool(args.profile_dir) and epoch == start_epoch
+                     and is_main)
         with trace(args.profile_dir if profiling else None):
             loss_sums, n_micro = [], 0
             mb_queue = []
@@ -403,7 +510,7 @@ def main(argv=None):
                     flat_i, flat_m = augment_batch_seeded(
                         imgs.reshape(a * b, *imgs.shape[2:]),
                         msks.reshape(a * b, *msks.shape[2:]), seed + 1,
-                        aug_step, aug_cfg)
+                        aug_step, aug_cfg, local_slice=local, groups=a)
                     aug_step += 1
                     imgs = flat_i.reshape(imgs.shape)
                     msks = flat_m.reshape(msks.shape)
@@ -418,15 +525,15 @@ def main(argv=None):
             train_dt = time.time() - t0  # tolist() waited for the steps
             train_seconds.append(train_dt)
         if profiling:
-            print(f'  profiler trace of epoch {epoch + 1} written to '
-                  f'{args.profile_dir}')
+            log(f'  profiler trace of epoch {epoch + 1} written to '
+                f'{args.profile_dir}')
 
         # ---- EMA warmup state machine ----
         use_ema_for_val = use_ema and epoch >= ema_warmup_epochs
         if use_ema and epoch == ema_warmup_epochs:
             ema = ema_reinit(model)
-            print(f'  EMA re-initialized from training model at epoch '
-                  f'{epoch + 1}')
+            log(f'  EMA re-initialized from training model at epoch '
+                f'{epoch + 1}')
         if use_ema_for_val:
             shadow.load_state_dict(ema.state_dict())
             val_state, val_model_name = shadow.state_dict(), 'EMA model'
@@ -447,42 +554,56 @@ def main(argv=None):
             val_results['class_dice'].get('tumor', 0.0))
         history['lr'].append(lr)
 
-        print(f'  Train Loss: {train_loss:.4f}  ({train_dt:.1f}s, '
-              f'{len(train_ds) / max(train_dt, 1e-9):.1f} slices/s; '
-              f'val {dt - train_dt:.1f}s)')
-        print(f"  Val [{val_model_name}]: Loss={val_results['loss']:.4f} | "
-              f"Dice={val_results['mean_dice']:.4f} | "
-              f"IoU={val_results['mean_iou']:.4f} | "
-              f"Acc={val_results['pixel_accuracy']:.4f}")
-        print(f"  Tumor Dice: {val_results['class_dice'].get('tumor', 0):.4f}"
-              f" | Tumor IoU: {val_results['class_iou'].get('tumor', 0):.4f}")
+        log(f'  Train Loss: {train_loss:.4f}  ({train_dt:.1f}s, '
+            f'{len(train_ds) / max(train_dt, 1e-9):.1f} slices/s; '
+            f'val {dt - train_dt:.1f}s)')
+        log(f"  Val [{val_model_name}]: Loss={val_results['loss']:.4f} | "
+            f"Dice={val_results['mean_dice']:.4f} | "
+            f"IoU={val_results['mean_iou']:.4f} | "
+            f"Acc={val_results['pixel_accuracy']:.4f}")
+        log(f"  Tumor Dice: {val_results['class_dice'].get('tumor', 0):.4f}"
+            f" | Tumor IoU: {val_results['class_iou'].get('tumor', 0):.4f}")
 
-        sched_state = (scheduler.state_dict() if sched_kind == 'plateau'
-                       else None)
-        ema_state = (None if ema is None else
-                     {'params': ema.params, 'buffers': ema.buffers,
-                      'updates': ema.updates})
-        checkpoint.save(val_state, opt.state_dict(), epoch, val_results,
-                        config=config, scheduler_state=sched_state,
-                        step=train_step.steps,
-                        train_state={'model_state_dict': model.state_dict(),
-                                     'ema': ema_state, 'aug_step': aug_step})
+        if checkpoint is not None:
+            sched_state = (scheduler.state_dict() if sched_kind == 'plateau'
+                           else None)
+            ema_state = (None if ema is None else
+                         {'params': ema.params, 'buffers': ema.buffers,
+                          'updates': ema.updates})
+            checkpoint.save(val_state, opt.state_dict(), epoch, val_results,
+                            config=config, scheduler_state=sched_state,
+                            step=train_step.steps,
+                            train_state={
+                                'model_state_dict': model.state_dict(),
+                                'ema': ema_state, 'aug_step': aug_step})
 
+        # every rank holds the same global metrics, so every rank takes
+        # the same scheduler and early-stopping decisions
         monitored = get_nested_metric(val_results, monitor)
         if sched_kind == 'plateau':
             scheduler.step(monitored)
         if early_stopping and early_stopping(monitored):
-            print('\nEarly stopping triggered!')
+            log('\nEarly stopping triggered!')
             break
 
-    print('\n' + '=' * 60)
-    print('Training complete!')
+    log('\n' + '=' * 60)
+    log('Training complete!')
+    # the augmentation kernel's launches on each rank (0 where the warp
+    # took its plain version: a CPU run, or augmentation off)
+    warp_launches = gather_objects(warp.launch_count - warp_before)
+    log(f'Warp kernel launches per rank: {json.dumps(warp_launches)}')
+    result = {**history, 'save_dir': str(save_dir),
+              'train_seconds': train_seconds, 'warp_launches': warp_launches}
+    if not is_main:
+        return result
     (save_dir / 'history.json').write_text(
         json.dumps({k: [float(v) for v in vs] for k, vs in history.items()},
                    indent=1))
     if plots.have_matplotlib():
         plots.plot_training_curves(history,
                                    save_path=save_dir / 'training_curves.png')
+        # a fresh single-process loader: the training loaders yield this
+        # rank's rows only
         _plot_val_predictions(model, weights_dir / 'best', val_ds,
                               batch_size, workers, device,
                               save_dir / 'val_predictions.png')
@@ -493,8 +614,7 @@ def main(argv=None):
         best = max(history['tumor_dice'])
         print(f'Best Tumor Dice: {best:.4f} at epoch '
               f'{start_epoch + history["tumor_dice"].index(best) + 1}')
-    return {**history, 'save_dir': str(save_dir),
-            'train_seconds': train_seconds}
+    return result
 
 
 def _plot_val_predictions(model, best_dir, val_ds, batch_size, workers,

@@ -118,6 +118,11 @@ class AugmentParams:
     hole_top: torch.Tensor        # (N, K) U(0, 1)
     hole_left: torch.Tensor       # (N, K) U(0, 1)
 
+    def take(self, rows: torch.Tensor) -> 'AugmentParams':
+        """The draws of the given samples (a 1-D index tensor)."""
+        return AugmentParams(**{f.name: getattr(self, f.name)[rows]
+                                for f in dataclasses.fields(self)})
+
 
 def generator_for_step(seed: int, step: int,
                        device: torch.device) -> torch.Generator:
@@ -342,17 +347,41 @@ def apply_augment(images: torch.Tensor, masks: torch.Tensor,
     return normalize_batch(images, cfg.mean, cfg.std), masks
 
 
+def local_rows(groups: int, local_batch: int, index: int, count: int,
+               device=None) -> torch.Tensor:
+    """Rows of rank ``index`` of ``count`` in a global batch laid out as
+    ``groups`` microbatches of ``local_batch * count`` rows, where each
+    rank holds its contiguous ``local_batch`` rows of every microbatch."""
+    per_group = local_batch * count
+    offsets = torch.arange(groups, device=device)[:, None] * per_group
+    return (offsets + index * local_batch
+            + torch.arange(local_batch, device=device)[None, :]).reshape(-1)
+
+
 def augment_batch_seeded(images: torch.Tensor, masks: torch.Tensor,
-                         seed: int, step: int, cfg: AugmentConfig
+                         seed: int, step: int, cfg: AugmentConfig,
+                         local_slice: Optional[Tuple[int, int]] = None,
+                         groups: int = 1
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Draw on the images' device from the (seed, step) generator, then
-    apply: the train loop's call, with seed = config seed + 1."""
+    apply: the train loop's call, with seed = config seed + 1.
+
+    With ``local_slice=(index, count)`` the images are one rank's rows
+    of a global batch of ``groups`` microbatches (``local_rows``): the
+    draws are the global batch's, and the rank applies its rows' share,
+    so every row gets the augmentation a single process would give it."""
     n, ch, h, w = images.shape
     gen = generator_for_step(seed, step, images.device)
-    params = draw_augment_params(n, h, w, cfg, gen, images.device, ch)
+    if local_slice is None:
+        params = draw_augment_params(n, h, w, cfg, gen, images.device, ch)
+    else:
+        index, count = local_slice
+        params = draw_augment_params(n * count, h, w, cfg, gen,
+                                     images.device, ch).take(
+            local_rows(groups, n // groups, index, count, images.device))
     return apply_augment(images, masks, params, cfg)
 
 
 __all__ = ['AugmentConfig', 'AugmentParams', 'apply_augment',
            'augment_batch_seeded', 'draw_augment_params',
-           'generator_for_step', 'normalize_batch']
+           'generator_for_step', 'local_rows', 'normalize_batch']

@@ -12,6 +12,7 @@ Counterpart of ``unet_tpu/data/dataset.py``:
 * ``BatchLoader`` assembles batches in a thread pool in the same order
   (``np.random.default_rng(seed)`` shuffles each epoch), NCHW: images
   (B, 1, H, W), masks (B, H, W), uint8 on the wire with ``raw_uint8``;
+  with ``local_slice`` a rank yields only its rows of each global batch;
 * ``prefetch_to_device`` copies the next batches from pinned host memory
   with ``non_blocking`` copies while the current one computes.
 """
@@ -23,7 +24,7 @@ import random
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -180,20 +181,39 @@ class BatchLoader:
     (B, H, W)) numpy batches: float32 in [0, 1] and int32, or uint8 and
     uint8 with ``raw_uint8``. Train: shuffled each epoch by
     ``np.random.default_rng(seed)``, ``drop_last``. Val: in order, with
-    the smaller tail batch."""
+    the smaller tail batch.
+
+    ``batch_size`` is always the global batch. With
+    ``local_slice=(index, count)`` every rank computes the same global
+    order (same seed) and loads and yields only its contiguous
+    ``batch_size / count`` rows of each batch. ``pad_tail`` repeats the
+    last sample so the tail batch keeps the full shape (``tail_valid``
+    says how many of its rows are real)."""
 
     # batches of decoded samples in flight ahead of the consumer
     max_in_flight = 3
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0,
-                 num_threads: int = 8, raw_uint8: bool = False):
+                 num_threads: int = 8, raw_uint8: bool = False,
+                 local_slice: Optional[Tuple[int, int]] = None,
+                 pad_tail: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_threads = max(1, num_threads)
         self.raw_uint8 = raw_uint8
+        self.pad_tail = pad_tail
+        if local_slice is not None:
+            _, count = local_slice
+            if batch_size % count != 0:
+                raise ValueError(f'global batch {batch_size} not divisible '
+                                 f'by process count {count}')
+            if not (drop_last or pad_tail):
+                raise ValueError('local_slice needs drop_last or pad_tail '
+                                 '(uneven tail batches cannot be sharded)')
+        self.local_slice = local_slice
         self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
@@ -201,6 +221,11 @@ class BatchLoader:
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
+
+    def tail_valid(self, batch_index: int) -> int:
+        """Number of real (non-pad) rows in the given global batch."""
+        return min(self.batch_size,
+                   len(self.dataset) - batch_index * self.batch_size)
 
     def skip_epochs(self, epochs: int) -> None:
         """Draw and discard ``epochs`` epochs' shuffles, so a resumed run
@@ -218,7 +243,15 @@ class BatchLoader:
                 else self.dataset.load)
 
         def indices(b: int) -> np.ndarray:
-            return order[b * self.batch_size:(b + 1) * self.batch_size]
+            idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
+            if self.pad_tail and len(idxs) < self.batch_size:
+                idxs = np.concatenate([
+                    idxs, np.repeat(idxs[-1:], self.batch_size - len(idxs))])
+            if self.local_slice is not None:
+                index, count = self.local_slice
+                lb = self.batch_size // count
+                idxs = idxs[index * lb:(index + 1) * lb]
+            return idxs
 
         with ThreadPoolExecutor(max_workers=self.num_threads) as pool:
             pending = collections.deque(

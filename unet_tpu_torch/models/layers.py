@@ -16,7 +16,9 @@ Blocks:
   AttentionUp    gate the skip, then Up
 
 In training mode BatchNorm normalizes with the batch statistics and
-updates its running statistics (torch semantics), and the attention
+updates its running statistics (torch semantics); inside a process
+group of several ranks those are the global batch's, as the JAX
+package's GSPMD reductions give them. The attention
 gate upsamples W_g's output before its BatchNorm, as the reference does.
 """
 
@@ -28,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from unet_tpu_torch.core.distributed import all_reduce_sum, is_distributed
 from unet_tpu_torch.ops.attention_gate import (attention_gate_fused,
                                                fold_bn_into_conv,
                                                fused_shapes_supported)
@@ -72,7 +75,12 @@ class TorchBatchNorm(nn.Module):
     momentum 0.1. Mean and ``E[x^2] - E[x]^2`` (clamped at 0) are taken
     in float32 whatever the input's dtype, as the JAX package's
     ``TorchBatchNorm`` does; gradients flow through the batch
-    statistics."""
+    statistics.
+
+    Inside a process group of several ranks, training mode sums the
+    per-channel ``sum x``, ``sum x^2`` and count over the ranks (one
+    float32 all-reduce, differentiable), so the mean, the variance and
+    the factor n/(n-1) are the global batch's."""
 
     def __init__(self, num_features: int, eps: float = _BN_EPS):
         super().__init__()
@@ -88,16 +96,28 @@ class TorchBatchNorm(nn.Module):
         dt = x.dtype
         if self.training:
             xf = x.float()
-            mean = xf.mean((0, 2, 3))
-            var = torch.clamp(torch.square(xf).mean((0, 2, 3))
-                              - torch.square(mean), min=0.0)
             n = x.numel() // x.shape[1]
+            if is_distributed():
+                c = x.shape[1]
+                stats = all_reduce_sum(torch.cat([
+                    xf.sum((0, 2, 3)), torch.square(xf).sum((0, 2, 3)),
+                    xf.new_full((1,), float(n))]))
+                n = stats[2 * c].detach()
+                mean = stats[:c] / n
+                var = torch.clamp(stats[c:2 * c] / n - torch.square(mean),
+                                  min=0.0)
+                unbias = n / torch.clamp(n - 1, min=1)
+            else:
+                mean = xf.mean((0, 2, 3))
+                var = torch.clamp(torch.square(xf).mean((0, 2, 3))
+                                  - torch.square(mean), min=0.0)
+                unbias = n / max(n - 1, 1)
             with torch.no_grad():
                 m = _BN_MOMENTUM
                 self.running_mean.copy_(m * self.running_mean
                                         + (1.0 - m) * mean)
                 self.running_var.copy_(m * self.running_var
-                                       + (1.0 - m) * var * (n / max(n - 1, 1)))
+                                       + (1.0 - m) * var * unbias)
                 self.num_batches_tracked += 1
         else:
             mean, var = self.running_mean, self.running_var

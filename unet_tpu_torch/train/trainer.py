@@ -11,6 +11,12 @@ Counterpart of ``unet_tpu/train/trainer.py``:
   microbatches (mask 0) are skipped entirely (no forward, so BatchNorm's
   running statistics move on real microbatches only), and the grad sum
   is still divided by ``accum_steps``.
+* Inside a process group of several ranks (data parallel), each rank
+  runs its rows of every microbatch, and the step makes exactly one
+  gradient reduction: after the real microbatches are summed, one flat
+  all-reduce averages the grads (and the loss) over the ranks, which
+  gives the global batch's mean gradient; the clip, AdamW and the EMA
+  then run on identical values on every rank.
 * ``make_eval_step`` returns (loss, confusion matrix) on the device.
 * The EMA shadow blends parameters and copies BatchNorm buffers.
 * The predict steps normalize uint8 input on the device and threshold
@@ -27,8 +33,10 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
+from unet_tpu_torch.core.distributed import is_distributed
 from unet_tpu_torch.ops.bitpack import pack_masks_device
 from unet_tpu_torch.train.metrics import confusion_matrix_update
 
@@ -169,15 +177,12 @@ class TrainStep:
         self.ema_decay, self.use_ema = ema_decay, use_ema
         self.steps = 0
 
-    def __call__(self, images: torch.Tensor, masks: torch.Tensor,
-                 lr: float, mb_mask, ema: Optional[EmaState] = None
-                 ) -> torch.Tensor:
-        """images (A, B, C, H, W) float, masks (A, B, H, W) integer on the
-        model's device; ``mb_mask`` (A,) host values in {0, 1} marking the
-        real microbatches. Updates the model, the optimizer and ``ema``
-        in place; returns the sum of the real microbatches' losses as a
-        device scalar."""
-        model, params = self.model, [p for p in self.model.parameters()]
+    def accumulate(self, images: torch.Tensor, masks: torch.Tensor,
+                   mb_mask) -> torch.Tensor:
+        """Forward and backward over the real microbatches: leaves in each
+        ``p.grad`` the sum of their gradients and returns the sum of their
+        losses, both averaged over the ranks inside a process group."""
+        model = self.model
         model.train()
         self.opt.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), device=images.device)
@@ -188,9 +193,28 @@ class TrainStep:
             loss.backward()
             loss_sum = loss_sum + loss.detach()
         with torch.no_grad():
-            for p in params:
+            grads = []
+            for p in model.parameters():
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+                grads.append(p.grad)
+            if is_distributed():
+                loss_sum = average_over_ranks(grads, loss_sum)
+        return loss_sum
+
+    def __call__(self, images: torch.Tensor, masks: torch.Tensor,
+                 lr: float, mb_mask, ema: Optional[EmaState] = None
+                 ) -> torch.Tensor:
+        """images (A, B, C, H, W) float, masks (A, B, H, W) integer on the
+        model's device (a rank's rows of each microbatch inside a process
+        group); ``mb_mask`` (A,) host values in {0, 1} marking the real
+        microbatches. Updates the model, the optimizer and ``ema`` in
+        place; returns the sum of the real microbatches' losses as a
+        device scalar."""
+        model, params = self.model, [p for p in self.model.parameters()]
+        loss_sum = self.accumulate(images, masks, mb_mask)
+        with torch.no_grad():
+            for p in params:
                 p.grad.div_(self.accum_steps)
             if self.grad_clip and self.grad_clip > 0:
                 clip_by_global_norm([p.grad for p in params], self.grad_clip)
@@ -201,6 +225,21 @@ class TrainStep:
         if self.use_ema and ema is not None:
             ema_update(ema, model, self.ema_decay)
         return loss_sum
+
+
+@torch.no_grad()
+def average_over_ranks(grads, loss: torch.Tensor) -> torch.Tensor:
+    """Average ``grads`` (in place) and ``loss`` over the ranks with one
+    flat all-reduce; returns the averaged loss."""
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [loss.reshape(1).to(grads[0].dtype)])
+    dist.all_reduce(flat)
+    flat.div_(dist.get_world_size())
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+    return flat[offset].to(loss.dtype)
 
 
 def make_train_step(model: nn.Module, loss_fn: Callable,
