@@ -29,32 +29,58 @@ Phases (any failure raises and exits non-zero, printing no result):
    widths that take the kernel's other routes (256->64, 64->192,
    192->384), and the gate on a non-square shape (N=3, g 128x24x40, x
    128x48x80), on the widest gates of a base-128 and a base-8 model
-   (I = 512 and I = 4) and on widths that end inside a chunk;
+   (I = 512 and I = 4) and on widths that end inside a chunk; the gate's
+   band form (``GateBand``, the sharded forward's) at the four 512^2
+   gates, four bands and an uneven split, equal to the rows of the
+   whole map's launch bit for bit;
 5. the serving path: ``create_server`` serving that model (saved as a
    reference-format .pt) to concurrent HTTP clients, with the gate
    kernel's launch count read around the run;
 6. the directory predict CLI on 40 synthetic PNGs of mixed sizes and a
    corrupt one, with the fused gate on (4 gate launches per chunk), a
    threshold sweep and overlays, masks held against the direct pipeline;
-7. the training path: ``unet_tpu_torch.cli.train`` on
+7. data-parallel inference in one process (``core/mesh.py``) on two
+   replicas of the card (and on every GPU where there are several): a
+   bf16 row's result depends on the batch size and on its place in the
+   batch, so the split is held against one device on the same rows in
+   the same places, bit for bit: ``ReplicaSet.run`` against the
+   one-device step on its blocks, ``create_server`` on the replicas
+   against the one-device server at batch 8 / k on requests sent alone
+   (after the serve phase's kind of traffic from 16 clients;
+   ``/healthz`` says ``data_parallel`` k), the predict CLI's PNGs
+   against the one-device run at batch 8 / k; the gate kernel launches
+   4 times per forward on each replica (counted by stream); slices/s,
+   p50 and peak memory per device beside one device;
+8. the height-sharded forward (``core/spatial.py``) of that model at
+   512^2, batch 1 and 8, over four bands of the card (and over every
+   GPU where there are several), the gate kernel launching on every band
+   (4 per forward on each, counted by device and band): float32 (TF32
+   off) probabilities within 1e-4 of the unsharded forward, bfloat16
+   adding no error beyond bf16's against the float32 forward; ms per
+   forward and peak memory beside the unsharded; then ``--spatial-shard``
+   through the predict CLI;
+9. the training path: ``unet_tpu_torch.cli.train`` on
    ``configs/lung_tumor.yaml`` as written (bf16, batch 4 x accumulation
    8, augmentation on) on 20 synthetic volumes for 2 epochs, from random
    weights of a seed, with the warp kernel's launch count read around
    the run (one per super-batch); every loss finite, the weights moved,
    and the saved ``weights/last/model.pt`` serves a 512^2 slice through
    ``cli/predict.load_model``; then the same run with augmentation off;
-8. ``--resume`` of that run to a third epoch with ``--profile-dir``
+10. ``--resume`` of that run to a third epoch with ``--profile-dir``
    (epoch 3, one warp launch per super-batch, the trace names the warp
-   kernel, plots drawn or skipped with one line);
-9. the overfit CLI (``--synthetic --model attention_unet``, 100 of its
+   kernel, plots drawn or skipped with one line); then
+   ``cli/export_torch.py`` on the first run's ``weights/best``:
+   ``load_model`` reads the directory and the exported .pt to equal
+   logits;
+11. the overfit CLI (``--synthetic --model attention_unet``, 100 of its
    default 200 epochs) must PASS;
-10. the slice cache: 80 synthetic 512^2 PNGs written through PIL,
+12. the slice cache: 80 synthetic 512^2 PNGs written through PIL,
    ``build_cache`` (printing which builder ran), ``CachedSliceDataset``
    held byte for byte against ``SliceDataset`` on every slice, the loader
    alone timed on the cache and on the PNGs, then the train CLI with
    ``--cache`` on ``configs/lung_tumor.yaml`` for 2 epochs (warp launches
    counted around it);
-11. two ranks on the one card, each a process of this script
+13. two ranks on the one card, each a process of this script
    (``--dist-worker``), over gloo: NCCL refuses two ranks on one device.
    The one-step parity (loss and gradient norm after the step's one
    reduction, a fixed global batch of 4, float32 and bfloat16) against
@@ -65,7 +91,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    single-process ``--cache`` run's. With more than one GPU, also one
    NCCL rank per GPU spawned by one command through ``tpu.data_parallel``,
    each rank's warp launches read from the CLI's report;
-12. times (CUDA events) of each kernel beside its bound and plain version,
+14. times (CUDA events) of each kernel beside its bound and plain version,
    of the model forward, of serving, of the augmentation program and its
    draws, and of one optimizer step (8 microbatches forward and backward,
    clip, AdamW); the host cost of one launch of the conv's and the gate's
@@ -80,8 +106,17 @@ The line before the last lists the kernels as JSON, every number in it
 measured or computed by this run, and the last line is
 ``{"ok": true, "device": {...}}``. Exits 2 when no CUDA device is
 available. Imports nothing of JAX or of the JAX package.
+
+Two measurement modes run instead of the smoke:
+``python3 chip_smoke.py --inference-ab PARENT_DIR PAIRS`` runs the serve
+and predict phases of another checkout (``git archive`` of a parent
+commit, unpacked) and of this one alternately on the same host, one
+process a run, and prints each run's slices/s and the medians;
+``python3 chip_smoke.py --memory-ceiling`` finds the largest square
+image the unsharded bf16 forward takes on one card, at batch 1 and 8.
 """
 
+import contextlib
 import glob
 import http.client
 import io
@@ -142,6 +177,9 @@ MODEL_TOL_F32 = 1e-3
 MODEL_TOL_BF16 = 1.25
 CLIENTS = 16
 REQUESTS_PER_CLIENT = 8
+# the request sizes of the serve phase's traffic (H, W)
+SERVE_SIZES = [(512, 512), (400, 300), (256, 256), (600, 520), (512, 384),
+               (333, 517), (128, 200), (700, 700)]
 # the training super-batch: batch 4 x accumulation 8 at 512^2
 TRAIN_CONFIG = 'configs/lung_tumor.yaml'
 SUPER = 32
@@ -350,6 +388,48 @@ def check_gates():
             torch.testing.assert_close(got.float(), want.float(),
                                        **TOL[name])
     return errs
+
+
+def check_gate_bands():
+    """The gate's band form, as the height-sharded forward launches it:
+    at each 512^2 gate in both types, x split into SPATIAL_BANDS bands
+    (the sharded forward's edges at that level) and into three uneven
+    ones (5, 2h - 8 and 3 rows), each band launched with the g rows it
+    reads (``GateBand``). The bands joined equal the whole map's launch
+    bit for bit (the taps are computed on the global rows with the same
+    arithmetic), and each band is held against the plain band version."""
+    import torch
+    from unet_tpu_torch.core.spatial import band_edges
+    from unet_tpu_torch.ops import attention_gate as ag
+    from unet_tpu_torch.ops.resize import source_rows
+    cl = torch.channels_last
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split('.')[-1]
+        for i, (cg, h, cx, inter) in enumerate(GATES):
+            g, x, *rest = gate_inputs(cg, h, cx, inter, dtype, seed=i)
+            whole = ag.attention_gate_fused(g, x, *rest)
+            level = [e * 2 * h // IMG for e in band_edges(IMG, SPATIAL_BANDS)]
+            for edges in (level, [0, 5, 2 * h - 3, 2 * h]):
+                parts, err = [], 0.0
+                for s, e in zip(edges[:-1], edges[1:]):
+                    lo, hi = source_rows(h, 2 * h, s, e)
+                    args = (g[:, :, lo:hi].contiguous(memory_format=cl),
+                            x[:, :, s:e].contiguous(memory_format=cl),
+                            *rest, ag.GateBand(s, lo, h, 2 * h))
+                    got = ag.attention_gate_fused(*args)
+                    want = ag.attention_gate_reference(*args)
+                    torch.testing.assert_close(got.float(), want.float(),
+                                               **TOL[name])
+                    err = max(err, (got.float() - want.float()).abs()
+                              .max().item())
+                    parts.append(got)
+                joined = torch.cat(parts, 2)
+                sync()
+                same = torch.equal(joined, whole)
+                log(f'gate {i + 1} {name} on bands {edges}: joined bands '
+                    f'equal the whole map\'s launch bit for bit: {same}; '
+                    f'max |band kernel - plain band| = {err:.3g}')
+                assert same
 
 
 # ---------------------------------------------------------------- warp
@@ -913,9 +993,7 @@ def serve_main_path(model, card):
         # 2. the main path's run: concurrent clients, images of various
         #    sizes, PNG and JSON responses
         before = json.loads(_request(addr, 'GET', '/metrics')[2])
-        sizes = [(512, 512), (400, 300), (256, 256), (600, 520),
-                 (512, 384), (333, 517), (128, 200), (700, 700)]
-        bodies = [(s, _png(_image(rng, *s))) for s in sizes]
+        bodies = [(s, _png(_image(rng, *s))) for s in SERVE_SIZES]
         latencies, failures = [], []
         lock = threading.Lock()
 
@@ -1113,6 +1191,480 @@ def predict_path(model, card):
     return launches
 
 
+# ---------------------------------------------------------------- replicas
+
+# the replicas phase: concurrent requests (half the serve phase's), PNGs
+# through the predict CLI (whole chunks), requests sent one at a time
+REPLICA_REQUESTS = 64
+REPLICA_IMAGES = 16
+REPLICA_SOLO = 8
+SPATIAL_BANDS = 4
+SPATIAL_F32_ATOL = 1e-4
+
+
+def _device0():
+    import torch
+    return torch.device(DEVICE, 0) if DEVICE == 'cuda' else torch.device(DEVICE)
+
+
+def _replica_lists():
+    """Replica lists of the multi-device phases: two replicas of the
+    first device, and every GPU where there are several (and BATCH
+    splits over them)."""
+    import torch
+    from unet_tpu_torch.core.mesh import inference_devices
+    lists = {'2 replicas of one device': [_device0()] * 2}
+    n = torch.cuda.device_count() if DEVICE == 'cuda' else 1
+    if n > 1 and BATCH % n == 0:
+        lists[f'{n} GPUs'] = inference_devices('cuda')
+    return lists
+
+
+def _by_stream(x, band):
+    """A replica's key: its device and stream."""
+    import torch
+    return (str(x.device),
+            torch.cuda.current_stream(x.device).cuda_stream if x.is_cuda
+            else 0)
+
+
+def _by_band(x, band):
+    """A band's key: its device and its first row as a share of the map's
+    height (the same at every level for bands on multiples of 16); a
+    whole map's is 'whole'."""
+    return (str(x.device),
+            'whole' if band is None else band.y_off / band.h_out_full)
+
+
+class _GateTally:
+    """Counts the gate kernel's launches by ``key(x, band)``: by (device,
+    stream) for replicas, each enqueuing on a stream of its own, or by
+    (device, band). Wraps the models' reference to the wrapper; the
+    wrapper's own count moves where a kernel launches."""
+
+    def __init__(self, key=_by_stream):
+        from unet_tpu_torch.models import layers
+        from unet_tpu_torch.ops import attention_gate as ag
+        self.counts = {}
+        self._layers, self._orig = layers, layers.attention_gate_fused
+
+        def counting(g, x, *args):
+            before = ag.launch_count
+            out = self._orig(g, x, *args)
+            if ag.launch_count > before or DEVICE == 'cpu':
+                k = key(x, args[5] if len(args) > 5 else None)
+                self.counts[k] = self.counts.get(k, 0) + 1
+            return out
+
+        layers.attention_gate_fused = counting
+
+    def close(self):
+        self._layers.attention_gate_fused = self._orig
+
+
+def _peaks(devices):
+    """Peak allocated GiB of each distinct CUDA device of ``devices``
+    since the last reset (empty on the CPU)."""
+    import torch
+    return [round(torch.cuda.max_memory_allocated(d) / 2 ** 30, 2)
+            for d in sorted(set(devices), key=str) if d.type == 'cuda']
+
+
+def _serve_on(path, devices, bodies, solo=(), max_batch=None):
+    """``create_server`` on ``devices`` (batch ``max_batch``, default
+    BATCH) answering ``bodies`` (PNG requests) from CLIENTS concurrent
+    clients, then ``solo`` one at a time: /healthz, the concurrent
+    traffic's response bodies, dispatches and gate launches per replica
+    (each replica's stream), slices/s and p50 (host clock, load and
+    warm-up excluded), the mean device step, the peak memory per device,
+    and the solo responses."""
+    import torch
+    from unet_tpu_torch.cli.serve import create_server
+    for d in set(devices):
+        if d.type == 'cuda':
+            torch.cuda.reset_peak_memory_stats(d)
+    server, batcher = create_server(path, img_size=IMG, threshold=0.5,
+                                    max_batch=max_batch or BATCH, port=0,
+                                    devices=devices)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    addr = server.server_address[:2]
+    tally = _GateTally()
+    try:
+        health = json.loads(_request(addr, 'GET', '/healthz')[2])
+        out = [None] * len(bodies)
+        latencies = [0.0] * len(bodies)
+
+        def client(c):
+            for i in range(c, len(bodies), CLIENTS):
+                t = time.perf_counter()
+                st, _, data = _request(addr, 'POST', '/predict', bodies[i])
+                latencies[i] = time.perf_counter() - t
+                out[i] = data if st == 200 else None
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+            assert not t.is_alive(), 'client hung'
+        wall = time.perf_counter() - t0
+        b = json.loads(_request(addr, 'GET', '/metrics')[2])['batcher']
+        launches = sorted(tally.counts.values())
+        solo_out = [_request(addr, 'POST', '/predict', body)[2]
+                    for body in solo]
+        return {'health': health, 'bodies': out,
+                'dispatches': b['dispatches'], 'launches': launches,
+                'slices_per_s': len(bodies) / wall,
+                'p50_ms': (statistics.median(latencies) * 1e3 if bodies
+                           else None),
+                'device_ms': b.get('mean_device_ms'),
+                'peak_gib': _peaks(devices), 'solo': solo_out}
+    finally:
+        tally.close()
+        server.shutdown()
+        batcher.close()
+        server.server_close()
+
+
+def _predict_on(pt, src, out, devices, *extra):
+    """The predict CLI's directory pipeline on ``devices``: its summary,
+    the gate launches per replica, and what it printed about sharding."""
+    from unet_tpu_torch.cli import predict as predict_cli
+    args = predict_cli.parse_args([
+        '--weights', pt, '--source', src, '--output', out, '--img-size',
+        str(IMG), '--batch-size', str(BATCH), '--threshold',
+        ','.join(map(str, PREDICT_THRESHOLDS)), *extra])
+    tally = _GateTally()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            summary = predict_cli.run_directory(args, devices)
+    finally:
+        tally.close()
+    said = [line for line in buf.getvalue().splitlines()
+            if line.startswith('Sharding')]
+    return summary, sorted(tally.counts.values()), said
+
+
+def _same_files(a, b):
+    """(names, names whose bytes differ) of two output directories."""
+    names = sorted(os.listdir(a))
+    assert names == sorted(os.listdir(b))
+    return names, [n for n in names if open(f'{a}/{n}', 'rb').read()
+                   != open(f'{b}/{n}', 'rb').read()]
+
+
+def _batch_effects(model, rows):
+    """bf16 logits of ``rows`` (one batch) on one device against the same
+    rows as two blocks of half the rows, and against the rows in another
+    order: (share of logits that differ, max |difference|) each. cuDNN's
+    bf16 algorithms depend on the batch size and a row's result on its
+    position in the batch."""
+    import torch
+    half = rows.shape[0] // 2
+    perm = torch.arange(rows.shape[0], device=rows.device).roll(1)
+    with torch.inference_mode():
+        whole = model(rows)
+        blocks = torch.cat([model(rows[:half]), model(rows[half:])])
+        moved = model(rows[perm])[perm.argsort()]
+    return [((whole - t).abs() > 0).float().mean().item()
+            for t in (blocks, moved)], [
+                (whole - t).abs().max().item() for t in (blocks, moved)]
+
+
+def replicas_path(model, card):
+    """Data-parallel inference in one process (``core/mesh.py``) on k
+    replicas: two of the first device, and every GPU where there are
+    several. A row's bf16 result depends on the batch size and on its
+    position in the batch (``_batch_effects``), so each comparison puts
+    the same rows at the same places: (1) ``ReplicaSet.run`` on a batch
+    equals the one-device step on its k blocks of rows bit for bit, ten
+    runs, the gate kernel launching 4 times per forward on each replica;
+    (2) ``create_server`` on the replicas answers the serve phase's kind
+    of traffic from CLIENTS clients (``/healthz`` says ``data_parallel``
+    k, 4 gate launches per dispatch on each replica; slices/s, p50 and
+    peak memory beside one device), then requests sent one at a time (each
+    alone in its dispatch) get the masks of the one-device server at batch
+    BATCH / k bit for bit; (3) the predict CLI's directory pipeline on the
+    replicas writes the PNGs of the one-device run at batch BATCH / k
+    byte for byte (the same chunks, split in k)."""
+    import torch
+    from PIL import Image
+    from unet_tpu_torch.core.mesh import ReplicaSet
+    from unet_tpu_torch.train.trainer import make_serve_masks_step
+    cfg = {'model': {'type': 'attention_unet', 'n_channels': 1,
+                     'n_classes': 2, 'bilinear': True,
+                     'base_features': BASE, 'deep_supervision': False},
+           'tpu': {'compute_dtype': 'bfloat16',
+                   'fused_attention_gate': True}}
+    dev0 = _device0()
+    rng = np.random.default_rng(3)
+    n = REPLICA_REQUESTS
+    bodies = [_png(_image(rng, *SERVE_SIZES[i % len(SERVE_SIZES)]))
+              for i in range(n)]
+    solo = bodies[:REPLICA_SOLO]
+    u8 = torch.from_numpy(np.stack([_image(rng, IMG, IMG)
+                                    for _ in range(BATCH)])[:, None])
+    thr = torch.linspace(0.3, 0.7, BATCH)
+    shares, maxes = _batch_effects(
+        model, (u8.to(dev0).float() / 255.0 - 0.5) / 0.5)
+    log(f'replicas: bf16 logits of {BATCH} rows as one batch on one device '
+        f'against two blocks of {BATCH // 2}: {shares[0]:.2%} differ, max '
+        f'{maxes[0]:.3g}; against the rows in another order: '
+        f'{shares[1]:.2%} differ, max {maxes[1]:.3g}')
+    step = make_serve_masks_step(model)
+
+    def report(name, r, p):
+        log(f'TIME replicas: server on {name}: {r["slices_per_s"]:.2f} '
+            f'slices/s, p50 {r["p50_ms"]:.1f} ms at {CLIENTS} clients, mean '
+            f'device step {r["device_ms"]:.2f} ms, {r["dispatches"]} '
+            f'dispatches, gate kernel launches per replica {r["launches"]}, '
+            f'peak GiB per device {r["peak_gib"]}; predict CLI '
+            f'{p["steady_slices_per_s"]:.2f} slices/s after the first '
+            f'chunk  [{card}]')
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pt = f'{tmp}/attention_unet64.pt'
+        _save_pt(model, cfg, pt)
+        src = f'{tmp}/slices'
+        os.makedirs(src)
+        for i in range(REPLICA_IMAGES):
+            h, w = PREDICT_SIZES[i % len(PREDICT_SIZES)]
+            Image.fromarray(_image(rng, h, w)).save(f'{src}/s_{i:03d}.png')
+        one = _serve_on(pt, [dev0], bodies)
+        one_p, one_launches, _ = _predict_on(pt, src, f'{tmp}/one', [dev0])
+        report(f'one device at batch {BATCH}', one, one_p)
+        assert one['health']['data_parallel'] == 1
+        if DEVICE == 'cuda':
+            assert one['launches'] == [4 * one['dispatches']]
+            assert one_launches == [4 * one_p['chunks']]
+        for name, devices in _replica_lists().items():
+            k = len(devices)
+            block = BATCH // k
+            with torch.inference_mode():
+                want = torch.cat([step(u8[i:i + block].to(dev0),
+                                       thr[i:i + block].to(dev0)).cpu()
+                                  for i in range(0, BATCH, block)])
+            replicas = ReplicaSet(model, devices, make_serve_masks_step,
+                                  per_row_thresholds=True)
+            tally = _GateTally()
+            try:
+                runs = [replicas.run(u8, thr).wait() for _ in range(10)]
+            finally:
+                tally.close()
+            run_differ = sum(not torch.equal(g, want) for g in runs)
+            run_launches = sorted(tally.counts.values())
+            del replicas
+            base = _serve_on(pt, [dev0], [], solo, block)
+            r = _serve_on(pt, devices, bodies, solo)
+            p, p_launches, said = _predict_on(pt, src, f'{tmp}/rep{k}',
+                                              devices)
+            _predict_on(pt, src, f'{tmp}/base{k}', [dev0], '--batch-size',
+                        str(block))
+            names, p_differ = _same_files(f'{tmp}/base{k}', f'{tmp}/rep{k}')
+            solo_differ = sum(a != b for a, b in zip(r['solo'],
+                                                     base['solo']))
+            report(name, r, p)
+            log(f'replicas: {name}: ReplicaSet.run against the one-device '
+                f'step on its {k} blocks of {block} rows: {run_differ} of 10 '
+                f'runs differ, gate launches per replica {run_launches}; '
+                f'server /healthz data_parallel '
+                f'{r["health"]["data_parallel"]}, {n} concurrent requests '
+                f'answered: {sum(b is not None for b in r["bodies"])}; '
+                f'{solo_differ} of {len(solo)} requests sent alone differ '
+                f'from the one-device server at batch {block}; predict CLI '
+                f'said {said}, gate launches per replica {p_launches} over '
+                f'{p["chunks"]} chunks, {len(p_differ)} of {len(names)} PNGs '
+                f'differ from the one-device run at batch {block}')
+            assert run_differ == 0 and solo_differ == 0 and not p_differ
+            assert r['health']['data_parallel'] == k
+            assert None not in r['bodies']
+            assert said == [f'Sharding batches over {k} devices']
+            assert p['processed'] == REPLICA_IMAGES
+            if DEVICE == 'cuda':
+                assert run_launches == [40] * k, run_launches
+                assert r['launches'] == [4 * r['dispatches']] * k, r
+                assert p_launches == [4 * p['chunks']] * k, p_launches
+
+
+# ---------------------------------------------------------------- spatial
+
+def spatial_path(model, card):
+    """The height-sharded forward (``core/spatial.py``) at full width:
+    the serve phase's AttentionUNet-64 at 512^2, batch 1 and BATCH, over
+    SPATIAL_BANDS bands of the first device (and over every GPU where
+    there are several), against the unsharded forward, both with the
+    fused gate on: the gate kernel launches on every band, 4 times per
+    forward on each (counted by device and band). float32 with TF32 off: probabilities within SPATIAL_F32_ATOL. bfloat16:
+    both bf16 forwards held against the unsharded float32 one, the
+    sharded one's error (max and mean) at most MODEL_TOL_BF16 times the
+    unsharded one's, as the fused gate route is held: sharding adds no
+    error beyond bf16's rounding; ``within_one_step`` of the two bf16
+    logits is printed beside it. Then ms per forward and peak memory per
+    device beside the unsharded, and ``--spatial-shard`` through the
+    predict CLI."""
+    import torch
+    from unet_tpu_torch.core.spatial import SpatialShardedModel
+    from unet_tpu_torch.ops import attention_gate as ag
+
+    dev0 = _device0()
+    lists = {f'{SPATIAL_BANDS} bands of one device':
+             [dev0] * SPATIAL_BANDS}
+    lists.update({k: v for k, v in _replica_lists().items() if 'GPU' in k})
+    rng = np.random.default_rng(17)
+    u8 = torch.from_numpy(np.stack([_image(rng, IMG, IMG)
+                                    for _ in range(BATCH)])[:, None])
+    x = ((u8.to(dev0).float() / 255.0 - 0.5) / 0.5)
+    held = []
+
+    def forward(m, dtype, nb):
+        model.dtype = dtype
+        tally = _GateTally(_by_band)
+        try:
+            with torch.inference_mode():
+                ag.launch_count = 0
+                out = m(x[:nb])
+                sync()
+        finally:
+            tally.close()
+        return out, ag.launch_count, tally.counts
+
+    try:
+        for name, devices in lists.items():
+            sharded = SpatialShardedModel(model, devices)
+            for nb in (1, BATCH):
+                ref, ref_launches, _ = forward(model, torch.float32, nb)
+                got, launches, bands = forward(sharded, torch.float32, nb)
+                perr = (torch.softmax(got, 1)
+                        - torch.softmax(ref, 1)).abs().max().item()
+                want16, _, _ = forward(model, torch.bfloat16, nb)
+                got16, launches16, bands16 = forward(sharded,
+                                                     torch.bfloat16, nb)
+                per_band = [bands.get(k, 0) + bands16.get(k, 0)
+                            for k in sorted(set(bands) | set(bands16))]
+                scale = ref.abs().max().item()
+                err_u = (want16 - ref).abs() / scale
+                err_s = (got16 - ref).abs() / scale
+                ratio = [(stat(err_s) / stat(err_u)).item()
+                         for stat in (torch.max, torch.mean)]
+                step_ok, share, dmax, beyond = within_one_step(got16, want16)
+                log(f'spatial: b{nb} {IMG}^2 over {name} ('
+                    f'{launches + launches16} gate launches in a float32 '
+                    f'and a bfloat16 forward, per band {per_band}; '
+                    f'unsharded {ref_launches} per forward): float32 max '
+                    f'|prob - unsharded| {perr:.3g} '
+                    f'(bound {SPATIAL_F32_ATOL}); bfloat16 error against '
+                    f'the float32 forward, sharded / unsharded: max '
+                    f'{err_s.max().item():.3g} / {err_u.max().item():.3g}, '
+                    f'mean {err_s.mean().item():.3g} / '
+                    f'{err_u.mean().item():.3g} (ratios {ratio[0]:.3f}, '
+                    f'{ratio[1]:.3f}; bound {MODEL_TOL_BF16}); bf16 logits '
+                    f'against each other: {share:.2%} differ, max '
+                    f'{dmax:.3g}, {beyond} beyond one bf16 step '
+                    f'(within_one_step: {step_ok})')
+                want_launches = (per_band == [8] * len(devices)
+                                 and ref_launches == 4
+                                 if DEVICE == 'cuda' else True)
+                held.append((perr <= SPATIAL_F32_ATOL
+                             and max(ratio) <= MODEL_TOL_BF16
+                             and want_launches, name, nb))
+            if DEVICE == 'cuda':
+                model.dtype = torch.bfloat16
+                _time_spatial(model, sharded, x, name, card)
+            del sharded
+        assert all(h[0] for h in held), [h for h in held if not h[0]]
+    finally:
+        model.dtype = torch.bfloat16
+    _spatial_cli(model, card)
+
+
+def _time_spatial(model, sharded, x, name, card):
+    """ms per bf16 forward and peak memory per device, sharded and not,
+    at batch 1 and BATCH."""
+    import torch
+    devices = sorted({d for d in sharded.devices}, key=str)
+    for nb in (1, BATCH):
+        row = []
+        for label, m in (('unsharded', model), ('sharded', sharded)):
+            for d in devices:
+                torch.cuda.reset_peak_memory_stats(d)
+            with torch.inference_mode():
+                ms = time_ms(lambda: m(x[:nb]), reps=5)
+            peaks = [torch.cuda.max_memory_allocated(d) / 2 ** 30
+                     for d in devices]
+            row.append(f'{label} {ms:.3f} ms, peak ' + ' / '.join(
+                f'{p:.2f}' for p in peaks) + ' GiB')
+        log(f'TIME spatial bf16 b{nb} {IMG}^2 over {name} (peak per device '
+            f'{[str(d) for d in devices]}): ' + '; '.join(row) + f'  [{card}]')
+
+
+def _spatial_cli(model, card):
+    """``--spatial-shard`` through the predict CLI over SPATIAL_BANDS
+    bands of the first device: it says it shards, and its masks equal the
+    unsharded CLI run's except at pixels within 1e-3 of a threshold, and
+    the gate kernel launches on every band. Both runs read a .pt with the
+    fused gate on in float32, where the two forwards agree to
+    SPATIAL_F32_ATOL; in bf16 their probabilities differ by bf16 steps,
+    which the phase above holds."""
+    import torch
+    from PIL import Image
+    from unet_tpu_torch.cli import predict as predict_cli
+    from unet_tpu_torch.train.trainer import make_predict_step_u8
+    cfg = {'model': {'type': 'attention_unet', 'n_channels': 1,
+                     'n_classes': 2, 'bilinear': True,
+                     'base_features': BASE, 'deep_supervision': False},
+           'tpu': {'compute_dtype': 'float32',
+                   'fused_attention_gate': True}}
+    rng = np.random.default_rng(19)
+    dev0 = _device0()
+    with tempfile.TemporaryDirectory() as tmp:
+        pt = f'{tmp}/attention_unet64.pt'
+        _save_pt(model, cfg, pt)
+        src = f'{tmp}/slices'
+        os.makedirs(src)
+        for i in range(2 * BATCH):
+            h, w = PREDICT_SIZES[i % len(PREDICT_SIZES)]
+            Image.fromarray(_image(rng, h, w)).save(f'{src}/s_{i:03d}.png')
+        one, _, _ = _predict_on(pt, src, f'{tmp}/one', [dev0])
+        t0 = time.perf_counter()
+        summary, launches, said = _predict_on(pt, src, f'{tmp}/bands',
+                                              [dev0] * SPATIAL_BANDS,
+                                              '--spatial-shard')
+        wall = time.perf_counter() - t0
+        names, differ = _same_files(f'{tmp}/one', f'{tmp}/bands')
+        loaded, _ = predict_cli.load_model(pt, device=dev0)
+        step = make_predict_step_u8(loaded)
+        suffixes = ['_mask.png'] + [f'_mask_t{t:g}.png'
+                                    for t in PREDICT_THRESHOLDS[1:]]
+        far = 0
+        for name in differ:
+            stem, suffix = name.split('_mask')[0], '_mask' + name.split(
+                '_mask')[1]
+            thr = PREDICT_THRESHOLDS[suffixes.index(suffix)]
+            x8, orig = predict_cli.preprocess_image(f'{src}/{stem}.png', IMG)
+            prob = step(torch.from_numpy(x8[None]).to(dev0))[0, 1].float()
+            near = np.asarray(Image.fromarray(
+                ((prob - thr).abs() < 1e-3).cpu().numpy().astype(np.uint8))
+                .resize(orig, Image.NEAREST)) > 0
+            a = np.asarray(Image.open(f'{tmp}/one/{name}'))
+            b = np.asarray(Image.open(f'{tmp}/bands/{name}'))
+            far += int(((a != b) & ~near).sum())
+        log(f'spatial: predict CLI --spatial-shard over {SPATIAL_BANDS} '
+            f'bands: {said}; {summary["processed"]} images in {wall:.2f} s '
+            f'({summary["chunks"]} chunks, {sum(launches)} gate launches); '
+            f'{len(differ)} of {len(names)} mask PNGs differ from the '
+            f'unsharded run\'s, {far} px of them away from a threshold  '
+            f'[{card}]')
+        assert said == [f'Sharding image height over {SPATIAL_BANDS} devices']
+        assert summary['processed'] == one['processed'] == 2 * BATCH
+        assert far == 0
+        if DEVICE == 'cuda':
+            assert sum(launches) == 4 * SPATIAL_BANDS * summary['chunks']
+
+
 # ---------------------------------------------------------------- train
 
 def _save_pt(model, cfg, path):
@@ -1272,6 +1824,37 @@ def resume_path(card, tmp, run_dir):
         for png in ('training_curves.png', 'val_predictions.png'):
             assert os.path.getsize(f'{hist["save_dir"]}/{png}') > 0, png
     return launches
+
+
+def export_path(card, run_dir):
+    """``cli/export_torch.py`` on the train phase's ``weights/best``:
+    ``load_model`` reads the directory and the exported .pt, and their
+    logits on a 512^2 batch are equal."""
+    import torch
+    from unet_tpu_torch.cli import export_torch
+    from unet_tpu_torch.cli.predict import load_model
+    best = f'{run_dir}/weights/best'
+    out = f'{run_dir}/exported/best.pt'
+    argv = ['--weights', best, '--output', out]
+    if DEVICE == 'cpu':
+        argv += ['--device', 'cpu']
+    meta = export_torch.main(argv)
+    from_dir, dmeta = load_model(best, device=DEVICE)
+    from_pt, pmeta = load_model(out, device=DEVICE)
+    rng = np.random.default_rng(23)
+    u8 = np.stack([_image(rng, IMG, IMG) for _ in range(2)])[:, None]
+    x = (torch.from_numpy(u8).to(DEVICE).float() / 255.0 - 0.5) / 0.5
+    with torch.inference_mode():
+        a, b = from_dir(x), from_pt(x)
+    payload = torch.load(out, map_location='cpu', weights_only=False)
+    log(f'export: {best} -> {out} ({os.path.getsize(out) / 1e6:.1f} MB, '
+        f'epoch {payload["epoch"]}, keys {sorted(payload)}); load_model '
+        f'read both (epoch {dmeta["epoch"]} / {pmeta["epoch"]}): logits '
+        f'equal {torch.equal(a, b)} on a {IMG}^2 batch of 2  [{card}]')
+    assert torch.equal(a, b) and torch.isfinite(a).all()
+    assert payload['epoch'] == meta['epoch'] == dmeta['epoch']
+    assert set(payload) == {'epoch', 'model_state_dict',
+                            'optimizer_state_dict', 'metrics', 'config'}
 
 
 def overfit_path(card, tmp):
@@ -1791,8 +2374,8 @@ def time_launch_host(card):
         'attention_gate C launch (4 maps)': lambda: gate_c(
             1, g.data_ptr(), gx.data_ptr(), wg.data_ptr(), wx.data_ptr(),
             badd.data_ptr(), wpsi.data_ptr(), bpsi.data_ptr(), gy.data_ptr(),
-            1, 16, 16, 32, 32, 64, 64, 32, ag._align_scale(16, 32),
-            ag._align_scale(16, 32), stream)}
+            1, 16, 16, 32, 32, 64, 64, 32, 0, 0, 16, 32,
+            ag._align_scale(16, 32), ag._align_scale(16, 32), stream)}
     reps = 500
     out = {}
     with torch.no_grad():
@@ -1943,6 +2526,114 @@ def device_busy(fn, top=12):
     return sum(k[1] for k in kernels), wall, kernels[:top]
 
 
+# ------------------------------------------------------ measurement modes
+
+AB_CHILD = """
+import sys, torch
+import chip_smoke as s
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from unet_tpu_torch.ops import _build
+_build.build_all()
+card = s.card_line()
+model, x = s.check_model(card)
+del x
+torch.cuda.empty_cache()
+s.serve_main_path(model, card)
+s.predict_path(model, card)
+"""
+AB_PATTERNS = {
+    'serve_slices_per_s': r'TIME serve ([0-9.]+) slices/s',
+    'serve_p50_ms': r'TIME serve .*? p50 ([0-9.]+) ms',
+    'serve_device_ms': r'mean device step ([0-9.]+) ms',
+    'predict_slices_per_s': r'([0-9.]+) slices/s after the first chunk',
+}
+
+
+def inference_ab(parent, pairs):
+    """The serve and predict phases (``serve_main_path``, ``predict_path``)
+    of two trees on this host, alternately, ``pairs`` times each in the
+    order parent, this tree, this tree, parent, ...: one process a run
+    from the tree's own root (each builds its own kernels), the readings
+    parsed from its TIME lines; prints every run and the medians."""
+    import re
+    trees = {'parent': os.path.abspath(parent),
+             'change': os.path.dirname(os.path.abspath(__file__))}
+    order = [('parent', 'change'), ('change', 'parent')]
+    runs = {k: [] for k in trees}
+    for i in range(pairs):
+        for name in order[i % 2]:
+            env = dict(os.environ, PYTHONPATH=trees[name])
+            res = subprocess.run([sys.executable, '-c', AB_CHILD],
+                                 cwd=trees[name], env=env,
+                                 capture_output=True, text=True, timeout=600)
+            if res.returncode:
+                print(res.stdout[-3000:], res.stderr[-3000:], file=sys.stderr)
+                raise SystemExit(f'inference_ab: the {name} run failed')
+            got = {k: float(re.search(p, res.stdout).group(1))
+                   for k, p in AB_PATTERNS.items()}
+            runs[name].append(got)
+            log(f'AB run {i} {name}: {json.dumps(got)}')
+    for name, rs in runs.items():
+        log(f'AB median {name} over {len(rs)} runs: ' + json.dumps(
+            {k: statistics.median(r[k] for r in rs) for k in AB_PATTERNS}))
+    log(card_line())
+
+
+def memory_ceiling():
+    """The largest square image the unsharded bf16 eval forward of the
+    smoke's AttentionUNet-64 (fused gate on) takes on one card, at batch
+    1 and BATCH: the side doubles from IMG until a forward fails, then
+    bisects in steps of 256; prints the peak memory of every size tried
+    and each failure's error. Then the height-sharded forward over
+    SPATIAL_BANDS bands of the same card at the first size that failed."""
+    import torch
+    from unet_tpu_torch.core.spatial import SpatialShardedModel
+    from unet_tpu_torch.models import create_model
+    card = card_line()
+    model = create_model('attention_unet', base_features=BASE,
+                         use_fused_gate=True,
+                         generator=torch.Generator().manual_seed(0))
+    model = model.to(DEVICE, memory_format=torch.channels_last).eval()
+    model.dtype = torch.bfloat16
+
+    def fits(side, nb, m=model, label='unsharded'):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with torch.inference_mode():
+                x = torch.zeros(nb, 1, side, side, device=DEVICE)
+                m(x)
+                sync()
+        except (torch.cuda.OutOfMemoryError, RuntimeError) as e:
+            log(f'memory: {label} b{nb} {side}^2 failed: '
+                f'{str(e).splitlines()[0][:160]}')
+            return False
+        finally:
+            x = None
+        log(f'memory: {label} b{nb} {side}^2 peak '
+            f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
+        return True
+
+    sharded = SpatialShardedModel(model, [torch.device(DEVICE)]
+                                  * SPATIAL_BANDS)
+
+    for nb in (1, BATCH):
+        lo, hi = IMG, None
+        while hi is None:
+            if fits(2 * lo, nb):
+                lo *= 2
+            else:
+                hi = 2 * lo
+        while hi - lo > 256:
+            mid = (lo + hi) // 2 // 256 * 256
+            lo, hi = (mid, hi) if fits(mid, nb) else (lo, mid)
+        log(f'memory ceiling: b{nb} fits {lo}^2, fails at {hi}^2 on one card '
+            f'({torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f}'
+            f' GiB)  [{card}]')
+        fits(hi, nb, sharded, f'sharded over {SPATIAL_BANDS} bands')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1970,6 +2661,7 @@ def main():
                 log(f'  ptxas {name}: {line.strip()}')
 
     errs = timed('check_gates', check_gates)
+    timed('check_gate_bands', check_gate_bands)
     warp_err = timed('check_warp', check_warp)
     timed('check_conv_edges', check_conv_edges)
     model, x = timed('check_model', check_model, card)
@@ -1978,12 +2670,16 @@ def main():
     torch.cuda.empty_cache()
     launches = timed('serve', serve_main_path, model, card)
     timed('predict', predict_path, model, card)
+    timed('replicas', replicas_path, model, card)
+    torch.cuda.empty_cache()
+    timed('spatial', spatial_path, model, card)
     del model
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         warp_launches, run_dir = timed('train', train_main_path, card, tmp)
         torch.cuda.empty_cache()
         timed('resume', resume_path, card, tmp, run_dir)
+        timed('export', export_path, card, run_dir)
         torch.cuda.empty_cache()
         timed('overfit', overfit_path, card, tmp)
         torch.cuda.empty_cache()
@@ -2052,4 +2748,8 @@ def main():
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--dist-worker']:
         sys.exit(dist_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ['--inference-ab']:
+        sys.exit(inference_ab(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ['--memory-ceiling']:
+        sys.exit(memory_ceiling())
     sys.exit(main())

@@ -110,12 +110,20 @@ def test_wrapper_refuses_devices_without_a_kernel(rng):
 @pytest.mark.parametrize('breakage,error', [
     ('dtype', TypeError), ('wg_shape', ValueError),
     ('not_channels_last', ValueError), ('badd_dtype', TypeError),
+    ('band_outside_map', ValueError), ('band_lacks_g_rows', ValueError),
 ])
 def test_kernel_argument_checks(breakage, error, rng):
     """The checks the wrapper makes before a launch refuse what the
     kernel does not take."""
     g, x, wg, wx, badd, wpsi, _ = _torch_args(_case(rng, *CASES[0]))
     bpsi = torch.tensor([0.05])
+    band = None
+    if breakage == 'band_outside_map':  # rows 24..56 of a 32-row map
+        band = gate.GateBand(24, 0, 16, 32)
+    elif breakage == 'band_lacks_g_rows':  # rows 0..8 of 32 read g 0..4
+        x = x[:, :, :8].contiguous(memory_format=torch.channels_last)
+        g = g[:, :, 1:8].contiguous(memory_format=torch.channels_last)
+        band = gate.GateBand(0, 1, 16, 32)
     if breakage == 'dtype':
         g, x = g.half(), x.half()
     elif breakage == 'wg_shape':
@@ -125,7 +133,34 @@ def test_kernel_argument_checks(breakage, error, rng):
     elif breakage == 'badd_dtype':
         badd = badd.double()
     with pytest.raises(error):
-        gate._check(g, x, wg, wx, badd, wpsi, bpsi)
+        gate._check(g, x, wg, wx, badd, wpsi, bpsi, band)
+
+
+@pytest.mark.parametrize('start,stop', [(0, 32), (32, 64), (5, 27),
+                                        (63, 64), (0, 64)])
+def test_band_gate_equals_rows_of_the_whole_map(start, stop, rng):
+    """A band's gate (x rows [start, stop), g the rows they read, on
+    the global coordinates) equals those rows of the whole map's gate,
+    and of the Pallas kernel's (interpret mode)."""
+    from unet_tpu_torch.ops.resize import source_rows
+    args = _case(rng, *CASES[2])  # g 32^2 -> x 64^2
+    jargs = [jnp.asarray(a) for a in args[:-1]] + [args[-1]]
+    want_kernel = np.asarray(jgate.attention_gate_fused(*jargs,
+                                                        interpret=True))
+    g, x, *rest = _torch_args(args)
+    whole = gate.attention_gate_fused(g, x, *rest)
+    lo, hi = source_rows(32, 64, start, stop)
+    got = gate.attention_gate_fused(
+        g[:, :, lo:hi], x[:, :, start:stop], *rest,
+        gate.GateBand(start, lo, 32, 64))
+    assert got.shape == x[:, :, start:stop].shape
+    # the band lerps rows then columns in float32, ATen's resize blends
+    # the four taps in another order: float32 rounding apart
+    np.testing.assert_allclose(got.numpy(), whole[:, :, start:stop].numpy(),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
+                               want_kernel[:, start:stop], rtol=1e-4,
+                               atol=1e-5)
 
 
 def test_align_scale_is_f32_rounded():

@@ -371,6 +371,143 @@ def test_every_rank_ends_the_step_identical(two_ranks):
         assert torch.equal(g, grads[1][k]), k
 
 
+# ---------------------------------------------------------------- class-weighted CE
+
+def _discs(rng, n, hw, r2):
+    """One disc of tumor per mask, its squared radius drawn from ``r2``."""
+    yy, xx = np.mgrid[0:hw, 0:hw]
+    masks = np.zeros((n, hw, hw), np.int32)
+    for m in masks:
+        cy, cx = rng.uniform(hw / 4, 3 * hw / 4, 2)
+        m[...] = (yy - cy) ** 2 + (xx - cx) ** 2 < rng.uniform(*r2)
+    return masks
+
+
+@pytest.fixture(scope='module')
+def weighted_ce(tmp_path_factory):
+    """Class-weighted CE (``loss: {type: ce, class_weights: [0.3,
+    1.7]}``) on a global batch of 8 whose halves hold very different
+    tumor fractions (rank 0's rows large discs, rank 1's small ones), so
+    the ranks' pixel-weight sums differ: JAX's step and eval, the port's
+    one-process step, and the port's 2-rank worker."""
+    import jax
+    import jax.numpy as jnp
+    from unet_tpu.models import create_model as jax_create_model
+    from unet_tpu.train import losses as jl
+    from unet_tpu.train import trainer as jtrainer
+    from unet_tpu_torch.models import create_model
+    from unet_tpu_torch.train.losses import create_loss_function
+    from unet_tpu_torch.utils.torch_port import state_dict_from_jax
+    from torch_port_helpers import jax_variables
+    from torch_dist_worker import CLASS_WEIGHTS
+
+    tmp = tmp_path_factory.mktemp('weighted_ce')
+    rng = np.random.default_rng(4)
+    big, small = (60, 150), (2, 6)
+    inputs = dict(
+        imgs=rng.standard_normal((8, 32, 32, 1)).astype(np.float32),
+        msks=np.concatenate([_discs(rng, 4, 32, big),
+                             _discs(rng, 4, 32, small)]),
+        # 13 rows: a full batch and a tail of 5 (rank 0 holds 4 real
+        # rows of it, rank 1 one real row and three padding rows)
+        val_imgs=rng.standard_normal((13, 32, 32, 1)).astype(np.float32),
+        val_msks=np.concatenate([_discs(rng, 4, 32, big),
+                                 _discs(rng, 4, 32, small),
+                                 _discs(rng, 4, 32, big),
+                                 _discs(rng, 1, 32, small)]))
+    np.savez(tmp / 'inputs.npz', **inputs)
+    jloss = jl.create_loss_function('ce', class_weights=CLASS_WEIGHTS)
+    loss_fn = create_loss_function('ce', class_weights=CLASS_WEIGHTS)
+    x = jnp.asarray(inputs['imgs'])
+    want = {}
+    for ds in (0, 1):
+        jm = jax_create_model('attention_unet', base_features=8,
+                              deep_supervision=bool(ds))
+        variables = jax_variables(jm, 3)
+        torch.save(state_dict_from_jax(variables), tmp / f'weights_ds{ds}.pt')
+
+        def loss_of(p):
+            outs, _ = jm.apply({'params': p,
+                                'batch_stats': variables['batch_stats']},
+                               x, train=True, mutable=['batch_stats'])
+            return jloss(outs, jnp.asarray(inputs['msks']))
+
+        loss, grads = jax.jit(jax.value_and_grad(loss_of))(
+            variables['params'])
+        model = create_model('attention_unet', base_features=8,
+                             deep_supervision=bool(ds))
+        model.load_state_dict(state_dict_from_jax(variables), strict=True)
+        model.train()
+        port_loss = loss_fn(model(torch.from_numpy(inputs['imgs'])
+                                  .permute(0, 3, 1, 2)),
+                            torch.from_numpy(inputs['msks']))
+        port_loss.backward()
+        want[ds] = {
+            'jax_loss': float(loss), 'port_loss': port_loss.item(),
+            'jax_norm': _norm(state_dict_from_jax(
+                {'params': grads}).values()),
+            'port_norm': _norm(p.grad for p in model.parameters())}
+        if not ds:
+            eval_step = jax.jit(jtrainer.make_eval_step(jm, jloss, 2))
+            val = [float(eval_step(variables['params'],
+                                   variables['batch_stats'],
+                                   jnp.asarray(inputs['val_imgs'][s:s + 8]),
+                                   jnp.asarray(inputs['val_msks'][s:s + 8]))[0])
+                   for s in (0, 8)]
+            want['jax_val_loss'] = sum(val) / len(val)
+            # a fresh model: the train forward moved the statistics
+            model = create_model('attention_unet', base_features=8)
+            model.load_state_dict(state_dict_from_jax(variables))
+            with torch.inference_mode():
+                want['rank0_rows'] = loss_fn(
+                    model.eval()(torch.from_numpy(inputs['imgs'][:4])
+                          .permute(0, 3, 1, 2)),
+                    torch.from_numpy(inputs['msks'][:4])).item()
+    port = _port()
+    _run_ranks(lambda r: [sys.executable, 'tests/torch_dist_worker.py',
+                          f'127.0.0.1:{port}', str(r), '2', str(tmp),
+                          'weighted_ce'])
+    want['ranks'] = [torch.load(tmp / f'rank{r}.pt', weights_only=False)
+                     for r in (0, 1)]
+    return want
+
+
+@pytest.mark.parametrize('ds', [0, 1], ids=['plain', 'deep_supervision'])
+def test_weighted_ce_two_rank_step_equals_one_process_and_jax(weighted_ce,
+                                                              ds):
+    """The ranks normalize by the global batch's pixel-weight sum: loss
+    and gradient norm of the 2-rank step equal the one-process step's
+    and JAX's on the whole batch (not the mean of the ranks' ratios)."""
+    want = weighted_ce[ds]
+    for r in weighted_ce['ranks']:
+        got = r[f'ds{ds}']
+        norm = _norm(got['grads'].values())
+        for ref in ('port', 'jax'):
+            np.testing.assert_allclose(float(got['loss']),
+                                       want[f'{ref}_loss'], rtol=1e-5,
+                                       err_msg=ref)
+            np.testing.assert_allclose(norm, want[f'{ref}_norm'], rtol=2e-4,
+                                       err_msg=ref)
+
+
+def test_weighted_ce_validation_over_ranks_equals_jax(weighted_ce):
+    """Two batches, the second a padded tail split 4 + 1 real rows over
+    the ranks: the validation loss equals JAX's single-process eval loss
+    (each batch's global weighted ratio, averaged over the batches)."""
+    for r in weighted_ce['ranks']:
+        np.testing.assert_allclose(r['val_loss'], weighted_ce['jax_val_loss'],
+                                   rtol=1e-5)
+
+
+def test_weighted_ce_on_one_rank_alone_is_its_rows_loss(weighted_ce):
+    """A loss reduces over no ranks of its own: rank 0 evaluating it
+    alone inside the group neither waits on rank 1 nor scales its value,
+    which is the one-process loss of its four rows."""
+    np.testing.assert_allclose(weighted_ce['ranks'][0]['alone'],
+                               weighted_ce['rank0_rows'], rtol=1e-5)
+    assert 'alone' not in weighted_ce['ranks'][1]
+
+
 # ---------------------------------------------------------------- train CLI
 
 def _config(tmp, name, epochs=2, data_parallel=None):

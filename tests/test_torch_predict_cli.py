@@ -182,11 +182,32 @@ def test_pil_decode_gives_the_same_masks(setup, outputs, tmp_path):
                                       np.asarray(Image.open(tmp_path / p.name)))
 
 
-def test_spatial_shard_stops_at_parsing(capsys):
-    from unet_tpu_torch.cli.predict import parse_args
-    with pytest.raises(SystemExit):
-        parse_args(['--weights', 'w.pt', '--source', 's', '--spatial-shard'])
-    assert '--spatial-shard' in capsys.readouterr().err
+def test_spatial_shard_stops_at_parsing(setup, outputs, tmp_path, capsys):
+    """(Named for when the flag stopped at parsing.) --spatial-shard
+    parses and, over two devices, shards each image's height: the same
+    files as the one-device run, with the same masks except at pixels
+    whose tumor probability lies within 1e-5 of a threshold (the sharded
+    forward's bound, tests/test_torch_spatial.py)."""
+    from unet_tpu_torch.cli.predict import parse_args, run_directory
+    _, port_out, _ = outputs
+    args = parse_args(_argv(setup, tmp_path, '--device', 'cpu',
+                            '--spatial-shard'))
+    assert args.spatial_shard
+    summary = run_directory(args, [torch.device('cpu')] * 2)
+    assert 'Sharding image height over 2 devices' in capsys.readouterr().out
+    assert summary['processed'] == 5 and summary['chunks'] == 3
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
+        p.name for p in port_out.iterdir())
+    t = setup['thresholds']
+    for stem, (prob, orig) in setup['probs'].items():
+        for suffix, thr in [('_mask.png', t[0])] + [
+                (f'_mask_t{x:g}.png', x) for x in t[1:]]:
+            a = np.asarray(Image.open(tmp_path / f'{stem}{suffix}'))
+            b = np.asarray(Image.open(port_out / f'{stem}{suffix}'))
+            near = np.asarray(Image.fromarray(
+                (np.abs(prob - thr) < 1e-5).astype(np.uint8)).resize(
+                    orig, Image.NEAREST)) > 0
+            assert not ((a != b) & ~near).any(), (stem, suffix)
 
 
 def test_cuda_is_required_unless_cpu_is_asked(setup, tmp_path, monkeypatch):

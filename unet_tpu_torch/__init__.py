@@ -38,10 +38,22 @@ Where each part of ``unet_tpu`` lives here:
                                       one process per rank; nccl for
                                       CUDA, gloo for CPU or when
                                       UNET_TORCH_DIST_BACKEND=gloo)
-  unet_tpu/core/mesh.py            -> core/mesh.py (ranks over local
-                                      devices, replicate from rank 0,
-                                      local ranks spawned; no device
-                                      mesh: each rank is a process)
+  unet_tpu/core/mesh.py            -> core/mesh.py (training: ranks
+                                      over local devices, replicate from
+                                      rank 0, local ranks spawned; no
+                                      device mesh: each rank is a
+                                      process. Inference, as
+                                      batch_sharding/replicate: one
+                                      process, an eval replica per
+                                      device, ReplicaSet splits a
+                                      batch's rows)
+  unet_tpu/core/mesh.py::spatial_sharding
+                                   -> core/spatial.py (the height-sharded
+                                      eval forward: row bands over a
+                                      device list, halo rows per 3x3
+                                      conv, align-corners resizes on
+                                      global heights; a fused gate's
+                                      kernel on each band)
   unet_tpu/train/losses.py         -> train/losses.py
   unet_tpu/train/metrics.py        -> train/metrics.py
   unet_tpu/train/schedules.py      -> train/schedules.py
@@ -58,9 +70,15 @@ Where each part of ``unet_tpu`` lives here:
   unet_tpu/utils/profiling.py      -> utils/profiling.py (torch.profiler
                                       traces; nan_guard checks losses)
   unet_tpu/cli/predict.py          -> cli/predict.py (the directory CLI,
-                                      model loading, pre/postprocessing;
-                                      one GPU)
-  unet_tpu/cli/serve.py            -> cli/serve.py (one GPU)
+                                      model loading from a .pt or the
+                                      port's checkpoint directory,
+                                      pre/postprocessing; the batch split
+                                      over GPUs and --spatial-shard)
+  unet_tpu/cli/serve.py            -> cli/serve.py (the batch split over
+                                      GPUs)
+  unet_tpu/cli/export_torch.py     -> cli/export_torch.py (reads the
+                                      port's checkpoint directory, not
+                                      Orbax)
   unet_tpu/cli/train.py            -> cli/train.py (--resume,
                                       --profile-dir, plots, --cache;
                                       data parallel over ranks:
@@ -68,9 +86,8 @@ Where each part of ``unet_tpu`` lives here:
                                       --process-id, tpu.data_parallel)
   unet_tpu/cli/overfit.py          -> cli/overfit.py
 
-Still to port, in order: multi-GPU inference (the serve CLI's
-data-parallel branch, predict's batch split and --spatial-shard); the
-export CLI; the port's bench.
+Still to port: the benchmark (bench.py, benchmarks/), which waits for
+a benchmark of the port's own.
 
 Not ported, because they are TPU lowerings of math ATen/cuDNN already
 do: ops/s2d.py and IncPoolS2D (UNET_TPU_S2D, UNET_TPU_S2D_LEVEL),

@@ -1,12 +1,14 @@
 #!/usr/bin/env python
-"""Directory inference CLI for lung-tumor segmentation on one GPU.
+"""Directory inference CLI for lung-tumor segmentation on one or more
+GPUs.
 
 Counterpart of ``unet_tpu/cli/predict.py``, with its flags (``--weights
---source --output --img-size --threshold --device --save-overlay
---no-save-mask --batch-size --decode-workers --no-native-decode
---save-workers``; ``--img-size`` defaults to 256 as in the reference, so
-pass 512 for models trained at 512). The model is rebuilt from the
-config embedded in a reference-format ``.pt`` checkpoint; a config with
+--source --output --img-size --threshold --device --spatial-shard
+--save-overlay --no-save-mask --batch-size --decode-workers
+--no-native-decode --save-workers``; ``--img-size`` defaults to 256 as in
+the reference, so pass 512 for models trained at 512). The model is
+rebuilt from the config embedded in a reference-format ``.pt`` checkpoint
+(or a checkpoint directory of the port's train CLI); a config with
 ``tpu.fused_attention_gate: true`` runs the eval gates through the
 hand-written gate kernel.
 
@@ -27,9 +29,13 @@ cuDNN's autotuning and the kernels' build).
     python -m unet_tpu_torch.cli.predict --weights model.pt \\
         --source slices/ --img-size 512 --threshold 0.3,0.5,0.7
 
-Runs on CUDA unless ``--device cpu`` asks for the CPU.
-``--spatial-shard`` (multi-GPU) is not ported yet and stops argument
-parsing.
+Runs on CUDA unless ``--device cpu`` asks for the CPU. With several
+GPUs (``--device cuda``, the default), as the JAX CLI over its local
+devices: a ``--batch-size`` that divides by the GPU count is split into
+one block of rows per GPU, each on an eval replica of the model
+(``core/mesh.py::ReplicaSet``), and ``--spatial-shard`` instead splits
+each image's height into one band per GPU (``core/spatial.py``, exact
+against the unsharded forward); otherwise one GPU runs.
 """
 
 from __future__ import annotations
@@ -58,16 +64,29 @@ def load_model(weights, dtype=None, device=None):
     with the model in eval mode, channels_last, on ``device`` (CUDA
     unless the caller names another).
 
+    ``weights`` is a reference-format ``.pt`` file or a checkpoint
+    directory of the port's train CLI (``<run>/weights/{last,best}``):
+    its ``model.pt`` is read, and the epoch and metrics come from its
+    ``meta.json``. A directory without ``model.pt`` (the JAX package's
+    Orbax checkpoint) is refused: the JAX exporter converts it.
+
     The config's ``tpu.compute_dtype`` (default bfloat16) sets the
     compute dtype unless ``dtype`` is given, and ``tpu.fused_attention_gate``
     routes the eval gates through the fused kernel, as the JAX train
     CLI's model does."""
+    from unet_tpu_torch.train.callbacks import CheckpointManager
+
     path = Path(weights)
+    dir_meta = None
     if path.is_dir():
-        raise ValueError(
-            f'{weights} is a directory (an Orbax checkpoint?); the PyTorch '
-            'port reads reference-format .pt files only. Convert it with '
-            'scripts/export_torch.py --weights DIR --output model.pt')
+        if not (path / 'model.pt').is_file():
+            raise ValueError(
+                f'{weights} is a directory without model.pt (an Orbax '
+                'checkpoint of the JAX package?); convert it with the JAX '
+                'exporter: python scripts/export_torch.py --weights DIR '
+                '--output model.pt')
+        dir_meta = CheckpointManager.read_meta(path)
+        path = path / 'model.pt'
     dev = resolve_device(device)
     state, cfg, epoch = load_torch_checkpoint(path)
     mcfg = cfg.get('model', {})
@@ -88,6 +107,9 @@ def load_model(weights, dtype=None, device=None):
         use_fused_gate=bool(tcfg.get('fused_attention_gate', False)))
     model.load_state_dict(state, strict=True)
     model = model.to(dev, memory_format=torch.channels_last).eval()
+    if dir_meta is not None:
+        return model, {'config': cfg, 'epoch': dir_meta.get('epoch'),
+                       'metrics': dir_meta.get('metrics') or {}}
     return model, {'config': cfg, 'epoch': epoch}
 
 
@@ -119,18 +141,12 @@ def postprocess_mask(prob_tumor, threshold, orig_size):
     return restore_mask(mask, orig_size)
 
 
-class _NotPorted(argparse.Action):
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f'{option_string} (multi-GPU inference) is not ported '
-                     'to unet_tpu_torch yet; the JAX CLI '
-                     '(python -m unet_tpu.cli.predict) has it')
-
-
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description='Predict tumor segmentation')
     p.add_argument('--weights', type=str, required=True,
-                   help='reference-format .pt checkpoint (e.g. '
-                        'runs/exp/weights/best/model.pt)')
+                   help='reference-format .pt checkpoint, or a checkpoint '
+                        'directory of the port\'s train CLI (e.g. '
+                        'runs/exp/weights/best)')
     p.add_argument('--source', type=str, required=True,
                    help='image file or directory of png/jpg')
     p.add_argument('--output', type=str, default='predictions')
@@ -141,9 +157,12 @@ def parse_args(argv=None):
                         '(e.g. 0.3,0.5,0.7) sweeps thresholds and saves '
                         'masks for each')
     p.add_argument('--device', type=str, default=None,
-                   help='"cpu" runs on the CPU; default CUDA')
-    p.add_argument('--spatial-shard', nargs=0, action=_NotPorted,
-                   help=argparse.SUPPRESS)
+                   help='"cpu" runs on the CPU, cuda:N on one GPU; default '
+                        'CUDA, every visible GPU')
+    p.add_argument('--spatial-shard', action='store_true',
+                   help='shard the image HEIGHT across the GPUs instead '
+                        'of the batch (for very large --img-size or '
+                        'batch sizes below the GPU count)')
     p.add_argument('--save-overlay', action='store_true')
     p.add_argument('--no-save-mask', action='store_true')
     p.add_argument('--batch-size', type=int, default=8,
@@ -241,28 +260,59 @@ class _Stages:
 
 
 def main(argv=None):
-    """Segment every image of ``--source``; returns a summary dict
-    (counts, rates, stage seconds, skipped files, chunks dispatched)."""
+    """Segment every image of ``--source`` on ``inference_devices``
+    (every visible GPU unless ``--device`` names one, or the CPU);
+    returns ``run_directory``'s summary."""
+    from unet_tpu_torch.core.mesh import inference_devices
+
     args = parse_args(argv)
+    return run_directory(args, inference_devices(args.device or None))
+
+
+def _predict_replicas(args, devices):
+    """The replicas a directory run dispatches to, as JAX's predict CLI
+    lays out its local devices: with several devices, ``--spatial-shard``
+    shards each image's height over them (``core/spatial.py``), else a
+    batch that splits evenly is split over them; otherwise the first
+    device runs alone."""
+    from unet_tpu_torch.core.mesh import ReplicaSet
+    from unet_tpu_torch.train.trainer import make_predict_masks_step
+
+    bs = max(1, args.batch_size)
+    if len(devices) > 1 and not args.spatial_shard and bs % len(devices):
+        devices = devices[:1]
+    model, meta = load_model(args.weights, device=devices[0])
+    print(f"Loaded model from {args.weights} "
+          f"(epoch {meta.get('epoch', '?')})")
+    if len(devices) > 1 and args.spatial_shard:
+        from unet_tpu_torch.core.spatial import SpatialShardedModel
+        model = SpatialShardedModel(model, devices)
+        print(f'Sharding image height over {len(devices)} devices')
+        devices = devices[:1]
+    elif len(devices) > 1:
+        print(f'Sharding batches over {len(devices)} devices')
+    return ReplicaSet(model, devices, make_predict_masks_step,
+                      per_row_thresholds=False)
+
+
+def run_directory(args, devices):
+    """Segment every image of ``args.source`` (parsed ``main`` flags) on
+    ``devices`` (a list; see ``_predict_replicas``); returns a summary
+    dict (counts, rates, stage seconds, skipped files, chunks
+    dispatched)."""
     from PIL import Image
 
     from unet_tpu_torch.data.cache import native_decode_batch
     from unet_tpu_torch.ops.bitpack import unpack_masks_host
-    from unet_tpu_torch.train.trainer import make_predict_masks_step
 
-    device = resolve_device(args.device or None)
-    model, meta = load_model(args.weights, device=device)
-    predict_step = make_predict_masks_step(model)
-    print(f"Loaded model from {args.weights} "
-          f"(epoch {meta.get('epoch', '?')})")
-
+    replicas = _predict_replicas(args, devices)
     files = gather_sources(args.source)
     out_dir = Path(args.output)
     out_dir.mkdir(parents=True, exist_ok=True)
     bs = max(1, args.batch_size)
     thresholds = [float(t) for t in str(args.threshold).split(',')]
-    thr_dev = torch.tensor(thresholds, dtype=torch.float32, device=device)
-    cuda = device.type == 'cuda'
+    thr = torch.tensor(thresholds, dtype=torch.float32)
+    pin = replicas.devices[0].type == 'cuda'
 
     stages = _Stages()
     skipped, coverages = [], []
@@ -355,9 +405,9 @@ def main(argv=None):
             print(f'  {f.name}: tumor coverage '
                   f'{100.0 * tumor_px / mask.size:.2f}%')
 
-    # one chunk computes on the card while the host finishes the older
+    # one chunk computes on the cards while the host finishes the older
     # one: each chunk's packed masks are copied back (pinned, async)
-    # right behind its forward, and an event marks when they are there
+    # right behind its forward on each replica (core/mesh.py::ReplicaSet)
     inflight = deque()
     pending = []
     chunks = 0
@@ -366,12 +416,10 @@ def main(argv=None):
 
     def drain_one(save_pool):
         nonlocal first
-        host, ready, metas, n_real = inflight.popleft()
+        masks, metas, n_real = inflight.popleft()
         t0 = time.perf_counter()
-        if ready is not None:
-            ready.synchronize()
+        arr = masks.wait().numpy()
         stages.add('readback_wait', time.perf_counter() - t0)
-        arr = host.numpy()
         stages.bytes['readback'] += arr.nbytes
         t0 = time.perf_counter()
         postprocess(arr, metas, n_real, save_pool, pending)
@@ -385,21 +433,13 @@ def main(argv=None):
                 decoded_chunks(decode_pool)):
             t0 = time.perf_counter()
             u8 = torch.from_numpy(batch)
-            if cuda:
-                u8 = u8.pin_memory().to(device, non_blocking=True)
+            if pin:
+                u8 = u8.pin_memory()
             stages.bytes['h2d'] += batch.nbytes
-            packed = predict_step(u8, thr_dev)
+            masks = replicas.run(u8, thr)
             chunks += 1
-            if cuda:
-                host = torch.empty(packed.shape, dtype=packed.dtype,
-                                   pin_memory=True)
-                host.copy_(packed, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record()
-            else:
-                host, ready = packed, None
             stages.add('h2d_dispatch', time.perf_counter() - t0)
-            inflight.append((host, ready, metas, n_real))
+            inflight.append((masks, metas, n_real))
             if len(inflight) > 1:
                 drain_one(save_pool)
         while inflight:

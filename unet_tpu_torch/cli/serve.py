@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Batched segmentation inference server on one GPU.
+"""Batched segmentation inference server on one or more GPUs.
 
 Counterpart of ``unet_tpu/cli/serve.py``, with the same flags and HTTP
 API plus ``--device``:
@@ -10,7 +10,12 @@ API plus ``--device``:
   each other share one device dispatch;
 - normalization, softmax and per-request thresholding run on the device
   and only bit-packed 1-bit masks are read back; masks are restored to
-  each request's original size with NEAREST on the host.
+  each request's original size with NEAREST on the host;
+- data parallel over every visible GPU, in one process: where
+  ``--max-batch`` divides by the GPU count, each dispatch's rows are
+  split into one block per GPU, each on an eval replica of the model
+  (``core/mesh.py::ReplicaSet``); otherwise one GPU serves. ``/healthz``
+  reports the replica count as ``data_parallel``.
 
 Run: ``python -m unet_tpu_torch.cli.serve --weights model.pt --img-size 512``
 
@@ -45,7 +50,8 @@ import numpy as np
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description='Serve tumor segmentation')
     p.add_argument('--weights', type=str, required=True,
-                   help='reference-format torch .pt checkpoint')
+                   help='reference-format torch .pt checkpoint, or a '
+                        'checkpoint directory of the port\'s train CLI')
     p.add_argument('--host', type=str, default='127.0.0.1')
     p.add_argument('--port', type=int, default=8500)
     p.add_argument('--img-size', type=int, default=512,
@@ -58,7 +64,8 @@ def parse_args(argv=None):
                    help='how long the batcher waits for co-travellers '
                         'after the first request of a batch')
     p.add_argument('--device', type=str, default=None,
-                   help='torch device (default: cuda)')
+                   help='torch device (default: cuda, every visible GPU; '
+                        'cuda:N one GPU)')
     return p.parse_args(argv)
 
 
@@ -333,33 +340,39 @@ def _make_handler(batcher: MicroBatcher, img_size: int,
 
 def create_server(weights, img_size=512, threshold=0.5, max_batch=8,
                   batch_window_ms=5.0, host='127.0.0.1', port=8500,
-                  device=None):
-    """Build the (server, batcher) pair with the model loaded on
-    ``device`` (CUDA unless the caller names another; raises when CUDA is
-    absent) and warmed up at the serving shape, kernel builds included,
-    before the socket opens. Separate from main() so tests can run it on
-    port 0."""
+                  device=None, devices=None):
+    """Build the (server, batcher) pair with the model loaded and warmed
+    up at the serving shape on every replica, kernel builds included,
+    before the socket opens. ``devices`` (default
+    ``core.mesh.inference_devices(device)``: every GPU for CUDA, which is
+    the default; raises when CUDA is absent) holds the replicas: where
+    ``max_batch`` splits evenly over them, every dispatch's rows are
+    split over them, as the JAX server shards its batch over its local
+    devices; otherwise the first one serves alone. Separate from main()
+    so tests can run it on port 0."""
     import torch
 
     from unet_tpu_torch.cli.predict import load_model
+    from unet_tpu_torch.core.mesh import ReplicaSet, inference_devices
     from unet_tpu_torch.train.trainer import make_serve_masks_step
 
-    model, meta = load_model(weights, device=device)
-    dev = next(model.parameters()).device
-    step = make_serve_masks_step(model)
+    devices = inference_devices(device if devices is None else devices)
+    if max_batch % len(devices):
+        devices = devices[:1]
+    model, meta = load_model(weights, device=devices[0])
+    replicas = ReplicaSet(model, devices, make_serve_masks_step,
+                          per_row_thresholds=True)
 
     def predict(batch_np: np.ndarray, thr_np: np.ndarray) -> np.ndarray:
-        u8 = torch.from_numpy(batch_np).to(dev)
-        thr = torch.from_numpy(thr_np).to(dev)
-        # (N, H, ceil(W/8)) uint8; .cpu() waits for the device
-        return step(u8, thr).cpu().numpy()
+        # (N, H, ceil(W/8)) uint8 in row order; wait() syncs the devices
+        return replicas.run(torch.from_numpy(batch_np),
+                            torch.from_numpy(thr_np)).wait().numpy()
 
     predict(np.zeros((max_batch, 1, img_size, img_size), np.uint8),
             np.full((max_batch,), 0.5, np.float32))
-    if dev.type == 'cuda':
-        torch.cuda.synchronize(dev)
 
     batcher = MicroBatcher(predict, max_batch, batch_window_ms / 1e3)
+    dev = devices[0]
     health = {
         'status': 'ok',
         'weights': str(weights),
@@ -369,7 +382,7 @@ def create_server(weights, img_size=512, threshold=0.5, max_batch=8,
         'backend': dev.type,
         'device': (torch.cuda.get_device_name(dev) if dev.type == 'cuda'
                    else str(dev)),
-        'data_parallel': 1,
+        'data_parallel': len(replicas),
     }
     handler = _make_handler(batcher, img_size, threshold, health)
     try:

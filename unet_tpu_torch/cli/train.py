@@ -210,7 +210,8 @@ def _train(args, config, device, rank, world):
     from unet_tpu_torch.train.schedules import create_scheduler
     from unet_tpu_torch.train.trainer import (EmaState, create_optimizer,
                                               ema_reinit, make_eval_step,
-                                              make_train_step)
+                                              make_train_step,
+                                              validation_loss)
     from unet_tpu_torch.utils.config import (describe_devices,
                                              get_nested_metric,
                                              increment_path, set_seed,
@@ -433,10 +434,11 @@ def _train(args, config, device, rank, world):
 
     def run_validation(step_fn):
         """Metrics of the global validation set on every rank: each rank
-        sums its confusion matrices, and per batch its loss times its
-        real rows; both are summed over the ranks once, at the end."""
+        sums its confusion matrices and keeps its loss of each batch
+        (its share of the global batch's loss); both are summed over the
+        ranks once, at the end."""
         metrics.reset()
-        losses, real_rows, cm_sum = [], [], None
+        losses, cm_sum = [], None
         for b, (images, masks) in enumerate(
                 prefetch_to_device(val_loader, device)):
             images = normalize_batch(images.float() / 255.0)
@@ -446,21 +448,14 @@ def _train(args, config, device, rank, world):
                 w = torch.zeros(local_batch, device=device)
                 w[:real] = 1.0
                 loss, cm = step_fn(images, masks, w)
-                losses.append(loss * real)
-                real_rows.append(val_loader.tail_valid(b))
             else:
                 loss, cm = step_fn(images, masks)
-                losses.append(loss)
+            losses.append(loss)
             cm_sum = cm if cm_sum is None else cm_sum + cm
         if cm_sum is not None:
             metrics.update_from_matrix(all_reduce_sum_(cm_sum))
         results = metrics.compute()
-        if weighted and losses:
-            losses = list(all_reduce_sum_(torch.stack(losses).float())
-                          / torch.tensor(real_rows, dtype=torch.float32,
-                                         device=device))
-        results['loss'] = (float(sum(losses)) / len(losses) if losses
-                           else 0.0)
+        results['loss'] = validation_loss(losses)
         return results
 
     def superbatches():

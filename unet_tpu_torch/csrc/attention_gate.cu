@@ -74,6 +74,14 @@
 // version's kernel: a register-blocked f32 FMA loop on the CUDA cores over a tile
 // staged K-major in shared memory; it takes any shape.
 //
+// Row bands. The height-sharded forward (core/spatial.py) asks for rows
+// [y_off, y_off + h_out) of the output of a map h_out_full rows high, with g
+// holding rows [g_off, g_off + h_in) of a source h_in_full rows high (at least
+// the rows those output rows read). Every tap is computed on the global rows,
+// with the same float arithmetic as the whole map's, so a band's output equals
+// those rows of the whole map's bit for bit. A whole map is the band y_off =
+// g_off = 0, h_in_full = h_in, h_out_full = h_out.
+//
 // Build (plain C interface, loaded with ctypes by unet_tpu_torch/ops/_build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libattention_gate.so attention_gate.cu
@@ -81,7 +89,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <climits>
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
 
@@ -107,6 +117,13 @@ template <typename T> __device__ __forceinline__ float round_t(float v) {
 }
 
 template <typename T, int N> struct alignas(sizeof(T) * N) Vec { T v[N]; };
+
+// Where a band of rows lies in the whole map (see the note at the head).
+struct Band {
+  int y_off;   // global row of x's and out's first row
+  int g_off;   // global row of g's first row
+  int g_last;  // the whole source's last row, h_in_full - 1
+};
 
 __host__ __device__ constexpr int tile_stride(int tp, int pt) {
   // Row stride of the K-major tile: padded off a multiple of 32 words to spread
@@ -136,7 +153,7 @@ gate_kernel(const T* __restrict__ g, const T* __restrict__ x,
             const float* __restrict__ badd, const T* __restrict__ wpsi,
             const float* __restrict__ bpsi, T* __restrict__ out, int n,
             int h_in, int w_in, int h_out, int w_out, int cg, int cx, int inter,
-            float scale_h, float scale_w) {
+            Band band, float scale_h, float scale_w) {
   constexpr int TP = 16 * PT;
   constexpr int IC = 16 * IPT;
   constexpr int TPS = tile_stride(TP, PT);
@@ -159,21 +176,23 @@ gate_kernel(const T* __restrict__ g, const T* __restrict__ x,
   const long long p0 = static_cast<long long>(blockIdx.x) * TP;
   const int valid = static_cast<int>(npix - p0 < TP ? npix - p0 : TP);
 
-  // 1. Align-corners taps of each pixel: src = i * (in - 1) / (out - 1).
+  // 1. Align-corners taps of each pixel: src = i * (in - 1) / (out - 1), on the
+  //    global rows, then as rows of g.
   if (tid < TP) {
     const long long q = p0 + (tid < valid ? tid : 0);
     const int b = static_cast<int>(q / hw);
     const int rem = static_cast<int>(q - b * hw);
     const int y = rem / w_out;
     const int xo = rem - y * w_out;
-    const float sy = y * scale_h;
-    const int y0 = min(static_cast<int>(floorf(sy)), h_in - 1);
+    const float sy = (y + band.y_off) * scale_h;
+    const int y0 = min(static_cast<int>(floorf(sy)), band.g_last);
     const float fy = sy - y0;
+    const int y1 = min(y0 + 1, band.g_last);
     const float sx = xo * scale_w;
     const int x0 = min(static_cast<int>(floorf(sx)), w_in - 1);
     const float fx = sx - x0;
-    row[2 * tid] = (static_cast<long long>(b) * h_in + y0) * w_in;
-    row[2 * tid + 1] = (static_cast<long long>(b) * h_in + min(y0 + 1, h_in - 1)) * w_in;
+    row[2 * tid] = (static_cast<long long>(b) * h_in + y0 - band.g_off) * w_in;
+    row[2 * tid + 1] = (static_cast<long long>(b) * h_in + y1 - band.g_off) * w_in;
     col[2 * tid] = x0;
     col[2 * tid + 1] = min(x0 + 1, w_in - 1);
     // the TPU kernel's interpolation matrices are cast to T
@@ -283,7 +302,8 @@ template <typename T, int PT, int IPT>
 cudaError_t launch(const void* g, const void* x, const void* wg, const void* wx,
                    const void* badd, const void* wpsi, const void* bpsi, void* out,
                    int n, int h_in, int w_in, int h_out, int w_out, int cg, int cx,
-                   int inter, float scale_h, float scale_w, cudaStream_t stream) {
+                   int inter, Band band, float scale_h, float scale_w,
+                   cudaStream_t stream) {
   const int kp = (cg + cx + kKC - 1) / kKC * kKC;
   const size_t smem = smem_bytes<T, PT, IPT>(kp);
   auto kernel = gate_kernel<T, PT, IPT>;
@@ -296,7 +316,7 @@ cudaError_t launch(const void* g, const void* x, const void* wg, const void* wx,
       static_cast<const T*>(g), static_cast<const T*>(x), static_cast<const T*>(wg),
       static_cast<const T*>(wx), static_cast<const float*>(badd),
       static_cast<const T*>(wpsi), static_cast<const float*>(bpsi), static_cast<T*>(out),
-      n, h_in, w_in, h_out, w_out, cg, cx, inter, scale_h, scale_w);
+      n, h_in, w_in, h_out, w_out, cg, cx, inter, band, scale_h, scale_w);
   return cudaGetLastError();
 }
 
@@ -306,17 +326,18 @@ template <typename T, int IPT>
 cudaError_t dispatch_pt(const void* g, const void* x, const void* wg, const void* wx,
                         const void* badd, const void* wpsi, const void* bpsi, void* out,
                         int n, int h_in, int w_in, int h_out, int w_out, int cg, int cx,
-                        int inter, float scale_h, float scale_w, cudaStream_t s) {
+                        int inter, Band band, float scale_h, float scale_w,
+                        cudaStream_t s) {
   const int kp = (cg + cx + kKC - 1) / kKC * kKC;
   if (tile_bytes<T, 4>(kp) <= kMaxTileBytes)
     return launch<T, 4, IPT>(g, x, wg, wx, badd, wpsi, bpsi, out, n, h_in, w_in,
-                             h_out, w_out, cg, cx, inter, scale_h, scale_w, s);
+                             h_out, w_out, cg, cx, inter, band, scale_h, scale_w, s);
   if (tile_bytes<T, 2>(kp) <= kMaxTileBytes)
     return launch<T, 2, IPT>(g, x, wg, wx, badd, wpsi, bpsi, out, n, h_in, w_in,
-                             h_out, w_out, cg, cx, inter, scale_h, scale_w, s);
+                             h_out, w_out, cg, cx, inter, band, scale_h, scale_w, s);
   if (tile_bytes<T, 1>(kp) <= 2 * kMaxTileBytes)
     return launch<T, 1, IPT>(g, x, wg, wx, badd, wpsi, bpsi, out, n, h_in, w_in,
-                             h_out, w_out, cg, cx, inter, scale_h, scale_w, s);
+                             h_out, w_out, cg, cx, inter, band, scale_h, scale_w, s);
   return cudaErrorInvalidValue;  // Cg + Cx too wide for one tile
 }
 
@@ -324,12 +345,13 @@ template <typename T>
 cudaError_t dispatch(const void* g, const void* x, const void* wg, const void* wx,
                      const void* badd, const void* wpsi, const void* bpsi, void* out,
                      int n, int h_in, int w_in, int h_out, int w_out, int cg, int cx,
-                     int inter, float scale_h, float scale_w, cudaStream_t s) {
+                     int inter, Band band, float scale_h, float scale_w,
+                     cudaStream_t s) {
   if (inter >= 64)
     return dispatch_pt<T, 4>(g, x, wg, wx, badd, wpsi, bpsi, out, n, h_in, w_in,
-                             h_out, w_out, cg, cx, inter, scale_h, scale_w, s);
+                             h_out, w_out, cg, cx, inter, band, scale_h, scale_w, s);
   return dispatch_pt<T, 2>(g, x, wg, wx, badd, wpsi, bpsi, out, n, h_in, w_in, h_out,
-                           w_out, cg, cx, inter, scale_h, scale_w, s);
+                           w_out, cg, cx, inter, band, scale_h, scale_w, s);
 }
 
 // ---------------------------------------------------------------- bf16 (wgmma)
@@ -419,7 +441,7 @@ struct GateTile {
 };
 
 __device__ __forceinline__ GateTile decode_gate_tile(int t, int tiles_x, int tiles_y,
-                                                     int h_in, int w_in, float scale_h,
+                                                     Band band, int w_in, float scale_h,
                                                      float scale_w) {
   GateTile tile;
   tile.x0 = (t % tiles_x) * kTileW;
@@ -427,7 +449,9 @@ __device__ __forceinline__ GateTile decode_gate_tile(int t, int tiles_x, int til
   tile.y0 = (t % tiles_y) * kTileH;
   tile.img = t / tiles_y;
   // the same arithmetic as the taps below, so the patch starts at the first tap
-  tile.gy0 = min(static_cast<int>(floorf(tile.y0 * scale_h)), h_in - 1);
+  // (a row of g, from the global rows)
+  tile.gy0 = min(static_cast<int>(floorf((tile.y0 + band.y_off) * scale_h)), band.g_last) -
+             band.g_off;
   tile.gx0 = min(static_cast<int>(floorf(tile.x0 * scale_w)), w_in - 1);
   return tile;
 }
@@ -443,7 +467,7 @@ __global__ void __launch_bounds__(kGateThreads, MINB)
                      const __nv_bfloat16* __restrict__ x, const float* __restrict__ badd,
                      const __nv_bfloat16* __restrict__ wpsi,
                      const float* __restrict__ bpsi, __nv_bfloat16* __restrict__ out,
-                     int h_in, int w_in, int h_out, int w_out, int cg, int cx, int inter,
+                     Band band, int w_in, int h_out, int w_out, int cg, int cx, int inter,
                      float scale_h, float scale_w, int tiles_x, int tiles_y,
                      int n_tiles) {
   using namespace hopper;
@@ -480,7 +504,7 @@ __global__ void __launch_bounds__(kGateThreads, MINB)
       RingPos<STAGES> pos(1);  // the ring starts empty
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
         const GateTile tile =
-            decode_gate_tile(t, tiles_x, tiles_y, h_in, w_in, scale_h, scale_w);
+            decode_gate_tile(t, tiles_x, tiles_y, band, w_in, scale_h, scale_w);
         for (int nc = 0; nc < n_chunks; ++nc) {
           const int i0 = nc * NP;
           for (int ks = 0; ks < ksteps; ++ks) {
@@ -531,19 +555,21 @@ __global__ void __launch_bounds__(kGateThreads, MINB)
     int held = -1;  // the stage whose products may still be running
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
       const GateTile tile =
-          decode_gate_tile(t, tiles_x, tiles_y, h_in, w_in, scale_h, scale_w);
+          decode_gate_tile(t, tiles_x, tiles_y, band, w_in, scale_h, scale_w);
       const int ybase = tile.y0 + wg * (kTileH / 2);
 
       // align-corners taps of this warpgroup's rows and columns, as patch
-      // indices: src = i * (in-1)/(out-1). A ragged tile's rows and columns past
-      // the map are clamped (their pixels are never stored).
+      // indices: src = i * (in-1)/(out-1), rows on the global rows. A ragged
+      // tile's rows and columns past the map are clamped (their pixels are never
+      // stored).
       if (tw < kTileH / 2) {
         const int y = min(ybase + tw, h_out - 1);
-        const float sy = y * scale_h;
-        const int ya = min(static_cast<int>(floorf(sy)), h_in - 1);
+        const float sy = (y + band.y_off) * scale_h;
+        const int ya = min(static_cast<int>(floorf(sy)), band.g_last);
         const float fy = sy - ya;
-        my.row[tw][0] = min(max(ya - tile.gy0, 0), kPatchH - 1);
-        my.row[tw][1] = min(max(min(ya + 1, h_in - 1) - tile.gy0, 0), kPatchH - 1);
+        const int gy = tile.gy0 + band.g_off;
+        my.row[tw][0] = min(max(ya - gy, 0), kPatchH - 1);
+        my.row[tw][1] = min(max(min(ya + 1, band.g_last) - gy, 0), kPatchH - 1);
         my.row_w[tw][0] = round_bf16(1.f - fy);
         my.row_w[tw][1] = round_bf16(fy);
       } else if (tw >= 32 && tw < 32 + kTileW) {
@@ -679,7 +705,8 @@ template <int NP, int STAGES, int MINB>
 cudaError_t launch_bf16(const void* g, const void* x, const void* wg, const void* wx,
                         const void* badd, const void* wpsi, const void* bpsi, void* out,
                         int n, int h_in, int w_in, int h_out, int w_out, int cg, int cx,
-                        int inter, float scale_h, float scale_w, cudaStream_t stream) {
+                        int inter, Band band, float scale_h, float scale_w,
+                        cudaStream_t stream) {
   CUtensorMap gmap, xmap, wgmap, wxmap;
   const uint64_t gdims[4] = {static_cast<uint64_t>(cg), static_cast<uint64_t>(w_in),
                              static_cast<uint64_t>(h_in), static_cast<uint64_t>(n)};
@@ -721,28 +748,31 @@ cudaError_t launch_bf16(const void* g, const void* x, const void* wg, const void
   kernel<<<static_cast<unsigned>(blocks), kGateThreads, smem, stream>>>(
       gmap, xmap, wgmap, wxmap, static_cast<const __nv_bfloat16*>(x),
       static_cast<const float*>(badd), static_cast<const __nv_bfloat16*>(wpsi),
-      static_cast<const float*>(bpsi), static_cast<__nv_bfloat16*>(out), h_in, w_in, h_out,
+      static_cast<const float*>(bpsi), static_cast<__nv_bfloat16*>(out), band, w_in, h_out,
       w_out, cg, cx, inter, scale_h, scale_w, tiles_x, tiles_y, static_cast<int>(tiles));
   return cudaGetLastError();
 }
 
 // NP follows I, as do the ring's depth and the blocks on an SM (see the note at
-// the head); what TMA cannot take is refused.
+// the head); what TMA cannot take is refused. The whole map must upsample
+// exactly 2x (a band may hold any rows of it).
 cudaError_t dispatch_bf16(const void* g, const void* x, const void* wg, const void* wx,
                           const void* badd, const void* wpsi, const void* bpsi, void* out,
                           int n, int h_in, int w_in, int h_out, int w_out, int cg, int cx,
-                          int inter, float scale_h, float scale_w, cudaStream_t s) {
-  if (n <= 0 || h_in <= 0 || w_in <= 0 || h_out != 2 * h_in || w_out != 2 * w_in ||
-      cg <= 0 || cx <= 0 || inter <= 0 || cg % 8 || cx % 8 || inter % 8)
+                          int inter, int h_out_full, Band band, float scale_h,
+                          float scale_w, cudaStream_t s) {
+  if (n <= 0 || h_in <= 0 || w_in <= 0 || h_out_full != 2 * (band.g_last + 1) ||
+      w_out != 2 * w_in || cg <= 0 || cx <= 0 || inter <= 0 || cg % 8 || cx % 8 ||
+      inter % 8)
     return cudaErrorInvalidValue;
   if (inter <= 64)
     return launch_bf16<64, 2, 2>(g, x, wg, wx, badd, wpsi, bpsi, out, n, h_in, w_in, h_out,
-                                 w_out, cg, cx, inter, scale_h, scale_w, s);
+                                 w_out, cg, cx, inter, band, scale_h, scale_w, s);
   if (inter <= 128)
     return launch_bf16<128, 4, 1>(g, x, wg, wx, badd, wpsi, bpsi, out, n, h_in, w_in,
-                                  h_out, w_out, cg, cx, inter, scale_h, scale_w, s);
+                                  h_out, w_out, cg, cx, inter, band, scale_h, scale_w, s);
   return launch_bf16<256, 3, 1>(g, x, wg, wx, badd, wpsi, bpsi, out, n, h_in, w_in, h_out,
-                                w_out, cg, cx, inter, scale_h, scale_w, s);
+                                w_out, cg, cx, inter, band, scale_h, scale_w, s);
 }
 
 }  // namespace
@@ -751,22 +781,34 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. g (n, h_in, w_in, cg) and x / out
 // (n, h_out, w_out, cx) are NHWC; wg (cg, inter), wx (cx, inter) and wpsi (inter)
-// are in the same type; badd (inter) and bpsi (1) are float32. bfloat16 wants
-// exactly 2x upsampling, cg, cx and inter multiples of 8 and 16-byte aligned
-// pointers. Returns the launch's cudaError_t (0 on success); does
-// not synchronise.
+// are in the same type; badd (inter) and bpsi (1) are float32. x and out are rows
+// [y_off, y_off + h_out) of a map h_out_full rows high, g rows [g_off, g_off +
+// h_in) of a source h_in_full rows high (a whole map: 0, 0, h_in, h_out); g must
+// hold every row the band's taps read. bfloat16 wants exactly 2x upsampling of
+// the whole map, cg, cx and inter multiples of 8 and 16-byte aligned pointers.
+// Returns the launch's cudaError_t (0 on success); does not synchronise.
 int attention_gate_launch(int dtype, const void* g, const void* x, const void* wg,
                           const void* wx, const void* badd, const void* wpsi,
                           const void* bpsi, void* out, int n, int h_in, int w_in,
-                          int h_out, int w_out, int cg, int cx, int inter,
-                          float scale_h, float scale_w, void* stream) {
+                          int h_out, int w_out, int cg, int cx, int inter, int y_off,
+                          int g_off, int h_in_full, int h_out_full, float scale_h,
+                          float scale_w, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (h_out <= 0 || h_in <= 0 || y_off < 0 || g_off < 0 || y_off + h_out > h_out_full ||
+      g_off + h_in > h_in_full)
+    return cudaErrorInvalidValue;
+  const Band band{y_off, g_off, h_in_full - 1};
+  // the band's first and last taps, as the kernels compute them, lie in g
+  const int first = std::min(static_cast<int>(std::floor(y_off * scale_h)), band.g_last);
+  const int last = std::min(
+      static_cast<int>(std::floor((y_off + h_out - 1) * scale_h)) + 1, band.g_last);
+  if (first < g_off || last >= g_off + h_in) return cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch<float>(g, x, wg, wx, badd, wpsi, bpsi, out, n, h_in, w_in, h_out,
-                           w_out, cg, cx, inter, scale_h, scale_w, s);
+                           w_out, cg, cx, inter, band, scale_h, scale_w, s);
   if (dtype == 1)
     return dispatch_bf16(g, x, wg, wx, badd, wpsi, bpsi, out, n, h_in, w_in, h_out, w_out,
-                         cg, cx, inter, scale_h, scale_w, s);
+                         cg, cx, inter, h_out_full, band, scale_h, scale_w, s);
   return cudaErrorInvalidValue;
 }
 

@@ -31,7 +31,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from unet_tpu_torch.core.distributed import all_reduce_sum, is_distributed
-from unet_tpu_torch.ops.attention_gate import (attention_gate_fused,
+from unet_tpu_torch.ops.attention_gate import (GateBand,
+                                               attention_gate_fused,
                                                fold_bn_into_conv,
                                                fused_shapes_supported)
 from unet_tpu_torch.ops.pool import max_pool
@@ -247,10 +248,15 @@ class AttentionGate(nn.Module):
         self.psi = nn.Sequential(_PsiReduce(inter_channels),
                                  TorchBatchNorm(1))
 
+    def takes_fused(self, g_shape, x_shape) -> bool:
+        """Whether the gate of g and x of these (whole-map) shapes runs
+        fused."""
+        return (self.use_fused and not self.training
+                and fused_shapes_supported(g_shape, x_shape))
+
     def forward(self, g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        if (self.use_fused and not self.training
-                and fused_shapes_supported(g.shape, x.shape)):
-            return self._fused(g, x)
+        if self.takes_fused(g.shape, x.shape):
+            return self.fused(g, x)
         h, w = x.shape[2], x.shape[3]
         if self.training:
             conv, bn = self.W_g
@@ -260,7 +266,11 @@ class AttentionGate(nn.Module):
         a = torch.sigmoid(self.psi(torch.relu(g1 + self.W_x(x))))
         return x * a.to(x.dtype)
 
-    def _fused(self, g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    def fused(self, g: torch.Tensor, x: torch.Tensor,
+              band: Optional[GateBand] = None) -> torch.Tensor:
+        """The gate through ``attention_gate_fused`` with BatchNorm folded
+        from the running stats; ``band`` places x and g in the whole map
+        (see ``GateBand``)."""
         dt = x.dtype
         kg, bg = _fold(*self.W_g)
         kx, bx = _fold(*self.W_x)
@@ -269,7 +279,7 @@ class AttentionGate(nn.Module):
         return attention_gate_fused(
             g.contiguous(memory_format=cl), x.contiguous(memory_format=cl),
             kg.to(dt).contiguous(), kx.to(dt).contiguous(),
-            (bg + bx).float(), kp.to(dt).contiguous(), bp.float())
+            (bg + bx).float(), kp.to(dt).contiguous(), bp.float(), band)
 
 
 class AttentionUp(nn.Module):

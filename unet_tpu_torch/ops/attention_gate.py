@@ -18,24 +18,42 @@ upsampling (so every shape the model's guard, ``fused_shapes_supported``,
 admits): its TMA loads want 16-byte rows, so the wrapper pads Cg, Cx and
 I with zeros to multiples of 8 before the launch, which is exact. The
 float32 kernel takes any shape.
+
+With ``band`` (a ``GateBand``) x holds a band of rows of a larger map and
+g the rows of the whole source that the band reads: the kernel computes
+the band's rows of the whole map's gate on the global row coordinates,
+bit for bit as the whole map's launch computes them. The height-sharded
+forward (``core/spatial.py``) gates each band so.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from unet_tpu_torch.ops.resize import resize_bilinear_align_corners
+from unet_tpu_torch.ops.resize import (resize_bilinear_align_corners,
+                                       resize_rows_align_corners,
+                                       source_rows)
 
 # Kernel launches since the count was last reset (chip_smoke.py resets
 # it before driving the main path and reads it after).
 launch_count = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class GateBand(NamedTuple):
+    """Where the gate's operands lie in the whole map: x holds rows
+    [y_off, y_off + x rows) of a map ``h_out_full`` rows high, g rows
+    [g_off, g_off + g rows) of the source, ``h_in_full`` rows high."""
+    y_off: int
+    g_off: int
+    h_in_full: int
+    h_out_full: int
 
 
 def fold_bn_into_conv(kernel: torch.Tensor, scale: torch.Tensor,
@@ -65,13 +83,20 @@ def fused_shapes_supported(g_shape, x_shape) -> bool:
 def attention_gate_reference(g: torch.Tensor, x: torch.Tensor,
                              wg: torch.Tensor, wx: torch.Tensor,
                              badd: torch.Tensor, wpsi: torch.Tensor,
-                             bpsi: Union[float, torch.Tensor]
+                             bpsi: Union[float, torch.Tensor],
+                             band: Optional[GateBand] = None
                              ) -> torch.Tensor:
     """Plain PyTorch version of the folded gate, step for step as the
     JAX package's ``attention_gate_reference``. g (N, Cg, h, w),
-    x (N, Cx, H, W), wg (Cg, I), wx (Cx, I), badd (I,), wpsi (I, 1)."""
+    x (N, Cx, H, W), wg (Cg, I), wx (Cx, I), badd (I,), wpsi (I, 1);
+    with ``band``, the band's rows of the whole map's gate."""
     dt = x.dtype
-    g_up = resize_bilinear_align_corners(g, x.shape[2], x.shape[3])
+    if band is None:
+        g_up = resize_bilinear_align_corners(g, x.shape[2], x.shape[3])
+    else:
+        g_up = resize_rows_align_corners(
+            g, band.g_off, band.h_in_full, band.h_out_full, x.shape[3],
+            band.y_off, band.y_off + x.shape[2])
     t = torch.relu(
         torch.einsum('nchw,ci->nihw', g_up, wg.to(dt))
         + torch.einsum('nchw,ci->nihw', x, wx.to(dt))
@@ -86,7 +111,7 @@ def _lib() -> ctypes.CDLL:
     if lib.attention_gate_launch.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.attention_gate_launch.argtypes = (
-            [i32] + [ptr] * 8 + [i32] * 8 + [f32, f32, ptr])
+            [i32] + [ptr] * 8 + [i32] * 12 + [f32, f32, ptr])
         lib.attention_gate_launch.restype = ctypes.c_int
         lib.attention_gate_error_string.argtypes = [i32]
         lib.attention_gate_error_string.restype = ctypes.c_char_p
@@ -124,7 +149,10 @@ def _pad_for_tma(g, x, wg, wx, badd, wpsi):
             _pad_dim(wpsi.reshape(-1, 1), 0))
 
 
-def _check(g, x, wg, wx, badd, wpsi, bpsi) -> None:
+def _check(g, x, wg, wx, badd, wpsi, bpsi,
+           band: Optional[GateBand] = None) -> None:
+    if band is None:
+        band = GateBand(0, 0, g.shape[2], x.shape[2])
     if x.dtype not in _DTYPES:
         raise TypeError(f'attention gate kernel: unsupported dtype {x.dtype}')
     if g.dim() != 4 or x.dim() != 4 or g.shape[0] != x.shape[0]:
@@ -146,11 +174,23 @@ def _check(g, x, wg, wx, badd, wpsi, bpsi) -> None:
         if shape is not None and tuple(t.shape) != shape:
             raise ValueError(f'attention gate kernel: {name} has shape '
                              f'{tuple(t.shape)}, needs {shape}')
-    if x.dtype == torch.bfloat16 and (
-            x.shape[2] != 2 * g.shape[2] or x.shape[3] != 2 * g.shape[3]):
+    if x.dtype == torch.bfloat16 and (band.h_out_full != 2 * band.h_in_full
+                                      or x.shape[3] != 2 * g.shape[3]):
         raise ValueError(
             f'attention gate kernel: the bfloat16 kernel takes exactly 2x '
-            f'upsampling, not g {tuple(g.shape)}, x {tuple(x.shape)}')
+            f'upsampling, not g {tuple(g.shape)}, x {tuple(x.shape)} of '
+            f'{band}')
+    if (band.y_off < 0 or band.y_off + x.shape[2] > band.h_out_full
+            or band.g_off < 0 or band.g_off + g.shape[2] > band.h_in_full):
+        raise ValueError(f'attention gate kernel: g {tuple(g.shape)} and x '
+                         f'{tuple(x.shape)} do not lie in {band}')
+    lo, hi = ((0, 0) if x.shape[2] == band.h_out_full  # the whole map
+              else source_rows(band.h_in_full, band.h_out_full, band.y_off,
+                               band.y_off + x.shape[2]))
+    if lo < band.g_off or hi > band.g_off + g.shape[2]:
+        raise ValueError(f'attention gate kernel: x rows of {band} read g '
+                         f'rows [{lo}, {hi}), g holds {g.shape[2]} from '
+                         f'{band.g_off}')
     if wpsi.numel() != inter or bpsi.numel() != 1:
         raise ValueError('attention gate kernel: wpsi needs I elements and '
                          'bpsi one')
@@ -170,7 +210,8 @@ def _check(g, x, wg, wx, badd, wpsi, bpsi) -> None:
 def attention_gate_fused(g: torch.Tensor, x: torch.Tensor,
                          wg: torch.Tensor, wx: torch.Tensor,
                          badd: torch.Tensor, wpsi: torch.Tensor,
-                         bpsi: Union[float, torch.Tensor]) -> torch.Tensor:
+                         bpsi: Union[float, torch.Tensor],
+                         band: Optional[GateBand] = None) -> torch.Tensor:
     """Fused inference attention gate.
 
     Args:
@@ -180,6 +221,7 @@ def attention_gate_fused(g: torch.Tensor, x: torch.Tensor,
       badd: summed folded biases (I,) float32
       wpsi: folded psi weights (I, 1) in x's dtype; bpsi: folded psi bias
         (a float or a one-element float32 tensor)
+      band: where x and g lie in the whole map (None: they are whole)
     Returns x * sigmoid(psi(relu(Wg g_up + Wx x))), shaped like x.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes
@@ -187,12 +229,15 @@ def attention_gate_fused(g: torch.Tensor, x: torch.Tensor,
     """
     global launch_count
     if x.device.type == 'cpu':
-        return attention_gate_reference(g, x, wg, wx, badd, wpsi, bpsi)
+        return attention_gate_reference(g, x, wg, wx, badd, wpsi, bpsi,
+                                        band)
     if x.device.type != 'cuda':
         raise ValueError(f'attention gate kernel: no kernel for {x.device}')
     if not torch.is_tensor(bpsi):
         bpsi = torch.tensor([float(bpsi)], device=x.device)
-    _check(g, x, wg, wx, badd, wpsi, bpsi)
+    if band is None:
+        band = GateBand(0, 0, g.shape[2], x.shape[2])
+    _check(g, x, wg, wx, badd, wpsi, bpsi, band)
     cx = x.shape[1]
     if x.dtype == torch.bfloat16:
         g, x, wg, wx, badd, wpsi = _pad_for_tma(g, x, wg, wx, badd, wpsi)
@@ -204,8 +249,9 @@ def attention_gate_fused(g: torch.Tensor, x: torch.Tensor,
         _DTYPES[x.dtype], g.data_ptr(), x.data_ptr(), wg.data_ptr(),
         wx.data_ptr(), badd.data_ptr(), wpsi.data_ptr(), bpsi.data_ptr(),
         out.data_ptr(), n, h_in, w_in, h_out, w_out, cg, x.shape[1],
-        wg.shape[1],
-        _align_scale(h_in, h_out), _align_scale(w_in, w_out),
+        wg.shape[1], band.y_off, band.g_off, band.h_in_full,
+        band.h_out_full, _align_scale(band.h_in_full, band.h_out_full),
+        _align_scale(w_in, w_out),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError('attention gate kernel launch failed: '

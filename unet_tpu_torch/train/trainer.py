@@ -16,7 +16,10 @@ Counterpart of ``unet_tpu/train/trainer.py``:
   gradient reduction: after the real microbatches are summed, one flat
   all-reduce averages the grads (and the loss) over the ranks, which
   gives the global batch's mean gradient; the clip, AdamW and the EMA
-  then run on identical values on every rank.
+  then run on identical values on every rank. A loss normalized by a
+  sum over the batch's rows (class-weighted CE, or any loss with sample
+  weights) is given ``den_reduce=rank_mean``, so that the ranks' mean of
+  their losses is the global batch's loss (``train.losses``).
 * ``make_eval_step`` returns (loss, confusion matrix) on the device.
 * The EMA shadow blends parameters and copies BatchNorm buffers.
 * The predict steps normalize uint8 input on the device and threshold
@@ -36,7 +39,9 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 
-from unet_tpu_torch.core.distributed import is_distributed
+from unet_tpu_torch.core.distributed import (all_reduce_sum,
+                                             all_reduce_sum_,
+                                             is_distributed, process_count)
 from unet_tpu_torch.ops.bitpack import pack_masks_device
 from unet_tpu_torch.train.metrics import confusion_matrix_update
 
@@ -163,6 +168,18 @@ def ema_update(ema: EmaState, model: nn.Module, decay: float,
     return ema
 
 
+def rank_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean of ``t`` over the ranks, differentiable: a loss's
+    ``den_reduce`` inside a process group."""
+    return all_reduce_sum(t) / process_count()
+
+
+def _loss_kwargs() -> Dict[str, Callable]:
+    """The losses' ``den_reduce`` where this process holds a rank's rows
+    of the batch."""
+    return {'den_reduce': rank_mean} if is_distributed() else {}
+
+
 class TrainStep:
     """One optimizer step over a super-batch; see ``make_train_step``.
     ``steps`` counts the optimizer steps taken."""
@@ -186,10 +203,11 @@ class TrainStep:
         model.train()
         self.opt.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), device=images.device)
+        kw = _loss_kwargs()
         for a in range(images.shape[0]):
             if not mb_mask[a]:
                 continue  # padded microbatch: no forward, BN stats untouched
-            loss = self.loss_fn(model(images[a]), masks[a])
+            loss = self.loss_fn(model(images[a]), masks[a], **kw)
             loss.backward()
             loss_sum = loss_sum + loss.detach()
         with torch.no_grad():
@@ -267,7 +285,7 @@ def make_eval_step(model: nn.Module, loss_fn: Callable, num_classes: int,
     def eval_step(images: torch.Tensor, masks: torch.Tensor):
         model.eval()
         logits = model(images)
-        return (loss_fn(logits, masks),
+        return (loss_fn(logits, masks, **_loss_kwargs()),
                 confusion_matrix_update(logits, masks, num_classes))
 
     @torch.inference_mode()
@@ -275,13 +293,27 @@ def make_eval_step(model: nn.Module, loss_fn: Callable, num_classes: int,
                            weights: torch.Tensor):
         model.eval()
         logits = model(images)
-        loss = loss_fn(logits, masks, sample_weights=weights)
+        loss = loss_fn(logits, masks, sample_weights=weights,
+                       **_loss_kwargs())
         # weight-0 rows -> target -1, which confusion_matrix_update drops
         gated = torch.where(weights[:, None, None] > 0, masks.long(),
                             torch.full_like(masks, -1, dtype=torch.long))
         return loss, confusion_matrix_update(logits, gated, num_classes)
 
     return eval_step_weighted if with_weights else eval_step
+
+
+def validation_loss(losses) -> float:
+    """The validation loss from each batch's eval loss on this rank: the
+    mean over the batches of each batch's loss over the global batch.
+    Inside a process group the ranks' mean of their losses of a batch is
+    that batch's loss (``make_eval_step`` passes ``den_reduce``), so one
+    all-reduce and a division by the world size give every batch's
+    global loss, as JAX's eval step on the sharded batch computes it."""
+    if not losses:
+        return 0.0
+    per_batch = all_reduce_sum_(torch.stack(losses).float())
+    return float(per_batch.mean()) / process_count()
 
 
 def group_into_superbatches(n_batches: int, accum_steps: int
