@@ -11,9 +11,11 @@ Phases (any failure raises and exits non-zero, printing no result):
    nvcc (sm_90a), one nvcc per source started together, and print the
    card's name and power limit;
 2. hold each kernel against its plain PyTorch version at the shapes the
-   main paths give it: the attention gate in float32 and bfloat16, the
-   warp at 32 x 512^2 on augmentation-drawn, scattered and all-.5-tie
-   coordinates (masks identical, images bit-identical);
+   main paths give it: the attention gate in float32 and bfloat16 at the
+   four gates of the bilinear AttentionUNet-64 and the four of the
+   transposed one (Cg = 2 Cx), the warp at 32 x 512^2 on
+   augmentation-drawn, scattered and all-.5-tie coordinates (masks
+   identical, images bit-identical);
 3. AttentionUNet-64 at 512^2, batch 8, bf16, channels_last, random
    weights from a seed and calibrated BatchNorm statistics: the fused
    gate launches 4 kernels per forward, and its logits match the same
@@ -30,7 +32,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    192->384), and the gate on a non-square shape (N=3, g 128x24x40, x
    128x48x80), on the widest gates of a base-128 and a base-8 model
    (I = 512 and I = 4) and on widths that end inside a chunk; the gate's
-   band form (``GateBand``, the sharded forward's) at the four 512^2
+   band form (``GateBand``, the sharded forward's) at the eight 512^2
    gates, four bands and an uneven split, equal to the rows of the
    whole map's launch bit for bit;
 5. the serving path: ``create_server`` serving that model (saved as a
@@ -59,28 +61,44 @@ Phases (any failure raises and exits non-zero, printing no result):
    adding no error beyond bf16's against the float32 forward; ms per
    forward and peak memory beside the unsharded; then ``--spatial-shard``
    through the predict CLI;
-9. the training path: ``unet_tpu_torch.cli.train`` on
+9. the model variants (``transposed``, ``unet``): AttentionUNet-64 with
+   transposed-conv upsampling at 512^2, batch 8, bf16, fused gate on,
+   calibrated as in 3: 4 gate launches per forward at Cg = 2 Cx, logits
+   held as in 3, then a .pt of it through ``load_model`` and the predict
+   CLI (4 launches per chunk) and its height-sharded f32 forward over
+   four bands (within 1e-4, 4 launches per band); the plain UNet-64,
+   bilinear and transposed: forwards finite, the channels_last bf16
+   route's error against f32 no worse than an NCHW route's;
+10. the training path: ``unet_tpu_torch.cli.train`` on
    ``configs/lung_tumor.yaml`` as written (bf16, batch 4 x accumulation
    8, augmentation on) on 20 synthetic volumes for 2 epochs, from random
    weights of a seed, with the warp kernel's launch count read around
    the run (one per super-batch); every loss finite, the weights moved,
    and the saved ``weights/last/model.pt`` serves a 512^2 slice through
    ``cli/predict.load_model``; then the same run with augmentation off;
-10. ``--resume`` of that run to a third epoch with ``--profile-dir``
+11. ``--resume`` of that run to a third epoch with ``--profile-dir``
    (epoch 3, one warp launch per super-batch, the trace names the warp
    kernel, plots drawn or skipped with one line); then
    ``cli/export_torch.py`` on the first run's ``weights/best``:
    ``load_model`` reads the directory and the exported .pt to equal
-   logits;
-11. the overfit CLI (``--synthetic --model attention_unet``, 100 of its
+   logits; then the variant runs of the train CLI at the shipped width
+   (``variants``), 32 training slices an epoch for 2 epochs: V1 the
+   plain UNet with ``cosine_annealing``, V2 the transposed AttentionUNet
+   with deep supervision, EMA (warmup 1 epoch), ``reduce_on_plateau`` and
+   the fused gate (the EMA model validated through the gate kernel, 4
+   launches per eval forward); finite losses, moved weights, one warp
+   launch per super-batch, ``weights/best`` served by ``load_model``;
+   then V2 resumed twice, one epoch each: EMA shadow, its update count
+   and the plateau state continue from the checkpoints;
+12. the overfit CLI (``--synthetic --model attention_unet``, 100 of its
    default 200 epochs) must PASS;
-12. the slice cache: 80 synthetic 512^2 PNGs written through PIL,
+13. the slice cache: 80 synthetic 512^2 PNGs written through PIL,
    ``build_cache`` (printing which builder ran), ``CachedSliceDataset``
    held byte for byte against ``SliceDataset`` on every slice, the loader
    alone timed on the cache and on the PNGs, then the train CLI with
    ``--cache`` on ``configs/lung_tumor.yaml`` for 2 epochs (warp launches
    counted around it);
-13. two ranks on the one card, each a process of this script
+14. two ranks on the one card, each a process of this script
    (``--dist-worker``), over gloo: NCCL refuses two ranks on one device.
    The one-step parity (loss and gradient norm after the step's one
    reduction, a fixed global batch of 4, float32 and bfloat16) against
@@ -91,7 +109,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    single-process ``--cache`` run's. With more than one GPU, also one
    NCCL rank per GPU spawned by one command through ``tpu.data_parallel``,
    each rank's warp launches read from the CLI's report;
-14. times (CUDA events) of each kernel beside its bound and plain version,
+15. times (CUDA events) of each kernel beside its bound and plain version,
    of the model forward, of serving, of the augmentation program and its
    draws, and of one optimizer step (8 microbatches forward and backward,
    clip, AdamW); the host cost of one launch of the conv's and the gate's
@@ -107,13 +125,20 @@ measured or computed by this run, and the last line is
 ``{"ok": true, "device": {...}}``. Exits 2 when no CUDA device is
 available. Imports nothing of JAX or of the JAX package.
 
-Two measurement modes run instead of the smoke:
+Four measurement modes run instead of the smoke:
 ``python3 chip_smoke.py --inference-ab PARENT_DIR PAIRS`` runs the serve
 and predict phases of another checkout (``git archive`` of a parent
 commit, unpacked) and of this one alternately on the same host, one
 process a run, and prints each run's slices/s and the medians;
 ``python3 chip_smoke.py --memory-ceiling`` finds the largest square
-image the unsharded bf16 forward takes on one card, at batch 1 and 8.
+image the unsharded bf16 forward takes on one card, at batch 1 and 8;
+``python3 chip_smoke.py --gate-ab PARENT_DIR`` builds another
+checkout's gate kernel and holds this one's against it bit for bit at
+every gate shape the smoke holds; ``python3 chip_smoke.py --quality
+OUT_DIR [Q1 ...]`` trains the full-schedule runs of QUALITY_RUNS on one
+card and holds each run's best validation tumor Dice against the JAX
+package's record, writing a JSON block per run and a TSV of the
+per-epoch Dice into OUT_DIR.
 """
 
 import contextlib
@@ -121,6 +146,7 @@ import glob
 import http.client
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -144,6 +170,11 @@ BASE = 64
 # g is (N, Cg, h, h), x is (N, Cx, 2h, 2h)
 GATES = [(512, 32, 512, 256), (256, 64, 256, 128),
          (128, 128, 128, 64), (64, 256, 64, 32)]
+# the four gates of the transposed-conv AttentionUNet-64 (``bilinear:
+# false``) at 512^2: each gates the skip with the un-upsampled decoder map,
+# which keeps its channels, so Cg = 2 Cx (the bottleneck has 1024)
+GATES_T = [(1024, 32, 512, 256), (512, 64, 256, 128),
+           (256, 128, 128, 64), (128, 256, 64, 32)]
 # more gates the model's guard admits and no 512^2 AttentionUNet-64 has:
 # one neither square nor a power of two, so tiles hang over the right edge
 # (W = 80 is five tiles of 16) and the g patch over the last source column;
@@ -352,13 +383,18 @@ def gate_bound(cg, h, cx, inter, dtype):
                                  else 'operations'), nbytes, flops
 
 
+def _gate_label(i):
+    """The name of GATES + GATES_T's i-th gate: 1-4, then T1-T4."""
+    return str(i + 1) if i < len(GATES) else f'T{i - len(GATES) + 1}'
+
+
 def check_gates():
     import torch
     from unet_tpu_torch.ops import attention_gate as ag
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split('.')[-1]
-        for i, (cg, h, cx, inter) in enumerate(GATES):
+        for i, (cg, h, cx, inter) in enumerate(GATES + GATES_T):
             args = gate_inputs(cg, h, cx, inter, dtype, seed=i)
             got = ag.attention_gate_fused(*args)
             want = ag.attention_gate_reference(*args)
@@ -366,8 +402,8 @@ def check_gates():
             assert got.shape == want.shape and got.dtype == dtype
             assert torch.isfinite(got).all()
             err = (got.float() - want.float()).abs().max().item()
-            log(f'gate {i + 1} g={cg}x{h}^2 x={cx}x{2 * h}^2 I={inter} '
-                f'{name}: max |kernel - plain| = {err:.3g}')
+            log(f'gate {_gate_label(i)} g={cg}x{h}^2 x={cx}x{2 * h}^2 '
+                f'I={inter} {name}: max |kernel - plain| = {err:.3g}')
             torch.testing.assert_close(got.float(), want.float(),
                                        **TOL[name])
             errs[(i, name)] = err
@@ -392,7 +428,8 @@ def check_gates():
 
 def check_gate_bands():
     """The gate's band form, as the height-sharded forward launches it:
-    at each 512^2 gate in both types, x split into SPATIAL_BANDS bands
+    at each 512^2 gate (bilinear and transposed) in both types, x split
+    into SPATIAL_BANDS bands
     (the sharded forward's edges at that level) and into three uneven
     ones (5, 2h - 8 and 3 rows), each band launched with the g rows it
     reads (``GateBand``). The bands joined equal the whole map's launch
@@ -405,7 +442,7 @@ def check_gate_bands():
     cl = torch.channels_last
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split('.')[-1]
-        for i, (cg, h, cx, inter) in enumerate(GATES):
+        for i, (cg, h, cx, inter) in enumerate(GATES + GATES_T):
             g, x, *rest = gate_inputs(cg, h, cx, inter, dtype, seed=i)
             whole = ag.attention_gate_fused(g, x, *rest)
             level = [e * 2 * h // IMG for e in band_edges(IMG, SPATIAL_BANDS)]
@@ -426,8 +463,9 @@ def check_gate_bands():
                 joined = torch.cat(parts, 2)
                 sync()
                 same = torch.equal(joined, whole)
-                log(f'gate {i + 1} {name} on bands {edges}: joined bands '
-                    f'equal the whole map\'s launch bit for bit: {same}; '
+                log(f'gate {_gate_label(i)} {name} on bands {edges}: '
+                    f'joined bands equal the whole map\'s launch bit for '
+                    f'bit: {same}; '
                     f'max |band kernel - plain band| = {err:.3g}')
                 assert same
 
@@ -553,20 +591,49 @@ def calibrate(model, x, seed):
         model.outc.conv.bias[1] -= (logits[:, 1] - logits[:, 0]).median()
 
 
+def _model_cfg(model_type, bilinear, dtype='bfloat16'):
+    """The config a .pt of a BASE-wide 2-class model carries, fused gate
+    on."""
+    return {'model': {'type': model_type, 'n_channels': 1, 'n_classes': 2,
+                      'bilinear': bilinear, 'base_features': BASE,
+                      'deep_supervision': False},
+            'tpu': {'compute_dtype': dtype, 'fused_attention_gate': True}}
+
+
+def _batch(seed, n):
+    """n smooth random IMG^2 slices, normalized as the model takes them."""
+    import torch
+    rng = np.random.default_rng(seed)
+    u8 = np.stack([_image(rng, IMG, IMG) for _ in range(n)])[:, None]
+    return (torch.from_numpy(u8).to(DEVICE).float() / 255.0 - 0.5) / 0.5
+
+
 def check_model(card):
     import torch
     from unet_tpu_torch.models import create_model
-    from unet_tpu_torch.ops import attention_gate as ag
 
     model = create_model('attention_unet', base_features=BASE,
                          dtype=torch.bfloat16, use_fused_gate=True,
                          generator=torch.Generator().manual_seed(0))
     model = model.to(DEVICE, memory_format=torch.channels_last).eval()
-    rng = np.random.default_rng(1)
-    u8 = np.stack([_image(rng, IMG, IMG) for _ in range(BATCH)])[:, None]
-    x = (torch.from_numpy(u8).to(DEVICE).float() / 255.0 - 0.5) / 0.5
+    x = _batch(1, BATCH)
     calibrate(model, x[:2], seed=2)
+    hold_fused_route(model, x, 'model')
+    time_fused_route(model, x, 'model', card, pairs=2)
+    return model, x
 
+
+def hold_fused_route(model, x, label):
+    """The model's logits on x with the fused gate and with the module
+    gates, in float32 and bfloat16: 4 gate kernel launches per fused
+    forward; float32 fused within MODEL_TOL_F32 of the float32 module
+    route (relative to the largest |logit|); the bfloat16 fused route's
+    error against the float32 module route (max and mean) at most
+    MODEL_TOL_BF16 times the bfloat16 module route's. Returns the four
+    logits by (dtype name, fused) and leaves the model in bfloat16 with
+    the fused gate on."""
+    import torch
+    from unet_tpu_torch.ops import attention_gate as ag
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split('.')[-1]
@@ -581,16 +648,16 @@ def check_model(card):
             out[name, False] = model(x)
         assert launches == 4, f'{launches} gate kernel launches per forward'
         for y in (out[name, True], out[name, False]):
-            assert y.shape == (BATCH, 2, IMG, IMG) and y.dtype == torch.float32
-            assert torch.isfinite(y).all()
-        log(f'model {name} b{BATCH} {IMG}^2: {launches} gate kernel '
+            assert y.shape == (x.shape[0], 2, IMG, IMG)
+            assert y.dtype == torch.float32 and torch.isfinite(y).all()
+        log(f'{label} {name} b{x.shape[0]} {IMG}^2: {launches} gate kernel '
             f'launches per forward')
     ref = out['float32', False]
     scale = ref.abs().max().item()
     err = {k: (v - ref).abs() / scale for k, v in out.items()}
     for (name, on), e in err.items():
         agree = (out[name, on].argmax(1) == ref.argmax(1)).float().mean()
-        log(f'model {name} gate {"fused " if on else "module"} vs float32 '
+        log(f'{label} {name} gate {"fused " if on else "module"} vs float32 '
             f'module gates: max |diff| / max |logit| = {e.max().item():.3g}, '
             f'mean {e.mean().item():.3g}, argmax agreement '
             f'{agree.item():.6f} (max |logit| {scale:.3g})')
@@ -598,20 +665,27 @@ def check_model(card):
     for stat in (torch.max, torch.mean):
         assert (stat(err['bfloat16', True]).item()
                 <= MODEL_TOL_BF16 * stat(err['bfloat16', False]).item())
+    model.dtype = torch.bfloat16
+    set_fused(model, True)
+    return out
 
+
+def time_fused_route(model, x, label, card, pairs):
+    """ms of the model's bf16 forward on x, fused gate on and off in
+    turns, ``pairs`` times each; leaves the fused gate on."""
+    import torch
     model.dtype = torch.bfloat16
     times = {}
     with torch.no_grad():
-        for on in (True, False, True, False):
+        for on in (True, False) * pairs:
             set_fused(model, on)
             times.setdefault(on, []).append(
                 time_ms(lambda: model(x), reps=10))
     set_fused(model, True)
     for on in (True, False):
-        log(f'TIME model forward bf16 b{BATCH} {IMG}^2 fused gate '
+        log(f'TIME {label} forward bf16 b{x.shape[0]} {IMG}^2 fused gate '
             f'{"on " if on else "off"}: '
             + ', '.join(f'{t:.3f}' for t in times[on]) + f' ms  [{card}]')
-    return model, x
 
 
 # ---------------------------------------------------------------- conv3x3
@@ -944,11 +1018,7 @@ def serve_main_path(model, card):
     from unet_tpu_torch.train.trainer import (make_predict_step_u8,
                                               make_serve_masks_step)
 
-    cfg = {'model': {'type': 'attention_unet', 'n_channels': 1,
-                     'n_classes': 2, 'bilinear': True,
-                     'base_features': BASE, 'deep_supervision': False},
-           'tpu': {'compute_dtype': 'bfloat16',
-                   'fused_attention_gate': True}}
+    cfg = _model_cfg('attention_unet', True)
     rng = np.random.default_rng(3)
     with tempfile.TemporaryDirectory() as tmp:
         path = f'{tmp}/attention_unet64.pt'
@@ -1086,11 +1156,7 @@ def predict_path(model, card):
     from unet_tpu_torch.train.trainer import (make_predict_masks_step,
                                               make_predict_step_u8)
 
-    cfg = {'model': {'type': 'attention_unet', 'n_channels': 1,
-                     'n_classes': 2, 'bilinear': True,
-                     'base_features': BASE, 'deep_supervision': False},
-           'tpu': {'compute_dtype': 'bfloat16',
-                   'fused_attention_gate': True}}
+    cfg = _model_cfg('attention_unet', True)
     rng = np.random.default_rng(13)
     with tempfile.TemporaryDirectory() as tmp:
         pt = f'{tmp}/attention_unet64.pt'
@@ -1395,11 +1461,7 @@ def replicas_path(model, card):
     from PIL import Image
     from unet_tpu_torch.core.mesh import ReplicaSet
     from unet_tpu_torch.train.trainer import make_serve_masks_step
-    cfg = {'model': {'type': 'attention_unet', 'n_channels': 1,
-                     'n_classes': 2, 'bilinear': True,
-                     'base_features': BASE, 'deep_supervision': False},
-           'tpu': {'compute_dtype': 'bfloat16',
-                   'fused_attention_gate': True}}
+    cfg = _model_cfg('attention_unet', True)
     dev0 = _device0()
     rng = np.random.default_rng(3)
     n = REPLICA_REQUESTS
@@ -1613,11 +1675,7 @@ def _spatial_cli(model, card):
     from PIL import Image
     from unet_tpu_torch.cli import predict as predict_cli
     from unet_tpu_torch.train.trainer import make_predict_step_u8
-    cfg = {'model': {'type': 'attention_unet', 'n_channels': 1,
-                     'n_classes': 2, 'bilinear': True,
-                     'base_features': BASE, 'deep_supervision': False},
-           'tpu': {'compute_dtype': 'float32',
-                   'fused_attention_gate': True}}
+    cfg = _model_cfg('attention_unet', True, dtype='float32')
     rng = np.random.default_rng(19)
     dev0 = _device0()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1665,6 +1723,200 @@ def _spatial_cli(model, card):
             assert sum(launches) == 4 * SPATIAL_BANDS * summary['chunks']
 
 
+# ------------------------------------------------------------- variants
+
+TRANSPOSED_IMAGES = 12  # PNGs through the predict CLI: two chunks of 8
+
+
+def transposed_path(card):
+    """AttentionUNet-64 with transposed-conv upsampling (``bilinear:
+    false``), 512^2, batch BATCH, bf16, channels_last, the fused gate on,
+    random weights of a seed and calibrated BatchNorm statistics: its four
+    gates are GATES_T (Cg = 2 Cx); 4 gate launches per forward and the
+    logits held against the module gates as ``check_model`` holds the
+    bilinear model (``within_one_step`` of the two bf16 routes printed
+    beside it); the ConvTranspose2d outputs' memory format; forward ms
+    with the gate on and off. Then a .pt of it through
+    ``cli/predict.load_model`` and the directory predict CLI on
+    TRANSPOSED_IMAGES PNGs: 4 gate launches per chunk. Returns the
+    model and the predict CLI's gate launches."""
+    import torch
+    from PIL import Image
+    from unet_tpu_torch.cli import predict as predict_cli
+    from unet_tpu_torch.models import create_model
+    from unet_tpu_torch.models.layers import ConvTranspose2d
+    from unet_tpu_torch.ops import attention_gate as ag
+    model = create_model('attention_unet', base_features=BASE, bilinear=False,
+                         dtype=torch.bfloat16, use_fused_gate=True,
+                         generator=torch.Generator().manual_seed(4))
+    model = model.to(DEVICE, memory_format=torch.channels_last).eval()
+    shapes = [(g.W_g[0].in_channels, g.W_x[0].in_channels,
+               g.W_g[0].out_channels) for g in gates_of(model)]
+    assert shapes == [(cg, cx, i) for cg, _, cx, i in GATES_T], shapes
+    x = _batch(5, BATCH)
+    calibrate(model, x[:2], seed=6)
+    formats = []
+    hooks = [m.register_forward_hook(lambda m, i, o: formats.append(
+        o.is_contiguous(memory_format=torch.channels_last)))
+        for m in model.modules() if isinstance(m, ConvTranspose2d)]
+    try:
+        out = hold_fused_route(model, x, 'transposed')
+    finally:
+        for h in hooks:
+            h.remove()
+    ok, share, dmax, beyond = within_one_step(out['bfloat16', True],
+                                              out['bfloat16', False])
+    log(f'transposed: gates (Cg, Cx, I) {shapes}; ConvTranspose2d outputs '
+        f'in channels_last: {sum(formats)} of {len(formats)}; bf16 logits '
+        f'fused vs module gates: {share:.2%} differ, max {dmax:.3g}, '
+        f'{beyond} beyond one bf16 step (within_one_step: {ok})')
+    del out
+    time_fused_route(model, x, 'transposed', card, pairs=1)
+
+    rng = np.random.default_rng(29)
+    with tempfile.TemporaryDirectory() as tmp:
+        pt = f'{tmp}/attention_unet64_transposed.pt'
+        _save_pt(model, _model_cfg('attention_unet', False), pt)
+        loaded, _ = predict_cli.load_model(pt, device=DEVICE)
+        assert not loaded.bilinear and all(
+            g.use_fused for g in gates_of(loaded))
+        with torch.no_grad():
+            ag.launch_count = 0
+            same = torch.equal(loaded(x), model(x))
+            sync()
+        assert ag.launch_count == 8, ag.launch_count
+        src, dst = f'{tmp}/slices', f'{tmp}/predictions'
+        os.makedirs(src)
+        for i in range(TRANSPOSED_IMAGES):
+            h, w = PREDICT_SIZES[i % len(PREDICT_SIZES)]
+            Image.fromarray(_image(rng, h, w)).save(f'{src}/t_{i:03d}.png')
+        argv = ['--weights', pt, '--source', src, '--output', dst,
+                '--img-size', str(IMG), '--batch-size', str(BATCH),
+                '--threshold', '0.5']
+        if DEVICE == 'cpu':
+            argv += ['--device', 'cpu']
+        ag.launch_count = 0
+        summary = predict_cli.main(argv)
+        launches = ag.launch_count
+        written = len(os.listdir(dst))
+    log(f'transposed: load_model read the .pt (logits equal the model\'s: '
+        f'{same}); predict CLI: {summary["processed"]} images in '
+        f'{summary["chunks"]} chunks, {launches} gate kernel launches, '
+        f'{written} masks written')
+    assert same
+    assert summary['processed'] == written == TRANSPOSED_IMAGES
+    assert summary['chunks'] == -(-TRANSPOSED_IMAGES // BATCH)
+    assert launches == 4 * summary['chunks']
+    return model, launches
+
+
+def spatial_transposed(model, card):
+    """``SpatialShardedModel`` of the transposed AttentionUNet-64 at 512^2,
+    batch 1, over SPATIAL_BANDS bands of the first device, fused gate on:
+    the stride-2 transposed convs take their bands' source rows, the gate
+    kernel launches on every band at Cg = 2 Cx (4 per band), and float32
+    (TF32 off) probabilities are within SPATIAL_F32_ATOL of the unsharded
+    forward's."""
+    import torch
+    from unet_tpu_torch.core.spatial import SpatialShardedModel
+    from unet_tpu_torch.ops import attention_gate as ag
+    dev0 = _device0()
+    x = _batch(31, 1).to(dev0)
+    sharded = SpatialShardedModel(model, [dev0] * SPATIAL_BANDS)
+    model.dtype = torch.float32
+    tally = _GateTally(_by_band)
+    try:
+        with torch.inference_mode():
+            ag.launch_count = 0
+            ref = model(x)
+            whole = ag.launch_count
+            got = sharded(x)
+            sync()
+    finally:
+        tally.close()
+        model.dtype = torch.bfloat16
+    per_band = [tally.counts[k] for k in sorted(tally.counts, key=str)
+                if k[1] != 'whole']
+    perr = (torch.softmax(got, 1) - torch.softmax(ref, 1)).abs().max().item()
+    log(f'spatial transposed: b1 {IMG}^2 float32 over {SPATIAL_BANDS} bands '
+        f'of one device: gate launches per band {per_band} (unsharded '
+        f'{whole}); max |prob - unsharded| {perr:.3g} (bound '
+        f'{SPATIAL_F32_ATOL})  [{card}]')
+    assert torch.isfinite(got).all() and perr <= SPATIAL_F32_ATOL
+    if DEVICE == 'cuda':
+        assert whole == 4 and per_band == [4] * SPATIAL_BANDS, (whole,
+                                                                per_band)
+
+
+def _nchw_logits(model, x):
+    """The model's logits on x with NCHW weights and activations: another
+    set of cuDNN kernels than the channels_last route the port runs."""
+    import copy
+    import torch
+    import unet_tpu_torch.models.unet as unet_module
+    prepare = unet_module._prepare
+    unet_module._prepare = lambda t, dtype: t.to(dtype=dtype).contiguous()
+    try:
+        m = copy.deepcopy(model).to(memory_format=torch.contiguous_format)
+        with torch.no_grad():
+            return m(x.contiguous())
+    finally:
+        unet_module._prepare = prepare
+
+
+def plain_unet_path(card):
+    """The plain UNet-64, bilinear and transposed, 512^2, batch BATCH,
+    channels_last, random weights of a seed and calibrated BatchNorm
+    statistics: float32 (TF32 off) and bfloat16 forwards finite; the
+    bf16 forward's error against the float32 one (max and mean, relative
+    to the largest |logit|) at most MODEL_TOL_BF16 times that of a bf16
+    forward in NCHW memory (other cuDNN kernels, the transposed convs'
+    among them), as the spatial phase holds its bands: the channels_last
+    route adds no error beyond bf16's. bf16 forward ms. The UNet has no
+    gate: no kernel launches here, which is counted too."""
+    import torch
+    from unet_tpu_torch.models import create_model
+    from unet_tpu_torch.ops import attention_gate as ag
+    from unet_tpu_torch.ops import conv3x3 as cv
+    x = _batch(37, BATCH)
+    for bilinear in (True, False):
+        model = create_model('unet', base_features=BASE, bilinear=bilinear,
+                             generator=torch.Generator().manual_seed(8))
+        model = model.to(DEVICE, memory_format=torch.channels_last).eval()
+        calibrate(model, x[:2], seed=9)
+        launches = ag.launch_count, cv.launch_count
+        out = {}
+        with torch.no_grad():
+            for dtype in (torch.float32, torch.bfloat16):
+                model.dtype = dtype
+                out[dtype] = model(x)
+            out['nchw'] = _nchw_logits(model, x)
+            sync()
+        assert (ag.launch_count, cv.launch_count) == launches
+        ref = out[torch.float32]
+        for y in out.values():
+            assert y.shape == (BATCH, 2, IMG, IMG) and torch.isfinite(y).all()
+        scale = ref.abs().max().item()
+        err = (out[torch.bfloat16] - ref).abs() / scale
+        err_n = (out['nchw'] - ref).abs() / scale
+        ratio = [(stat(err) / stat(err_n)).item()
+                 for stat in (torch.max, torch.mean)]
+        agree = (out[torch.bfloat16].argmax(1) == ref.argmax(1)).float(
+        ).mean().item()
+        ms = time_ms(lambda: model(x), reps=5) if DEVICE == 'cuda' else 0.0
+        kind = 'bilinear' if bilinear else 'transposed'
+        log(f'unet {kind}: b{BATCH} {IMG}^2 forwards finite, no kernel '
+            f'launched; bf16 error against f32, channels_last / NCHW: max '
+            f'{err.max().item():.3g} / {err_n.max().item():.3g}, mean '
+            f'{err.mean().item():.3g} / {err_n.mean().item():.3g} (ratios '
+            f'{ratio[0]:.3f}, {ratio[1]:.3f}; bound {MODEL_TOL_BF16}); '
+            f'argmax agreement {agree:.6f} (max |logit| {scale:.3g})')
+        log(f'TIME unet {kind} forward bf16 b{BATCH} {IMG}^2: {ms:.3f} ms  '
+            f'[{card}]')
+        assert max(ratio) <= MODEL_TOL_BF16, ratio
+        del model, out, ref, err, err_n
+
+
 # ---------------------------------------------------------------- train
 
 def _save_pt(model, cfg, path):
@@ -1689,19 +1941,25 @@ def one_rank_config(tmp):
     return path
 
 
-def save_init(tmp):
-    """The flagship model's random weights from seed 7, as a
-    reference-format ``tmp/init.pt``; returns the model."""
-    import torch
+def _config_model(cfg, generator=None):
+    """The model a train config describes, float32 on the CPU."""
     from unet_tpu_torch.models import create_model
-    cfg = _train_cfg()
     m = cfg['model']
-    init = create_model(m['type'], n_channels=m['n_channels'],
+    return create_model(m['type'], n_channels=m['n_channels'],
                         n_classes=m['n_classes'], bilinear=m['bilinear'],
                         base_features=m['base_features'],
                         deep_supervision=m['deep_supervision'],
-                        generator=torch.Generator().manual_seed(7))
-    _save_pt(init, cfg, f'{tmp}/init.pt')
+                        generator=generator)
+
+
+def save_init(tmp, cfg=None, name='init'):
+    """The model of ``cfg`` (default: the flagship config) with random
+    weights from seed 7, as a reference-format ``tmp/<name>.pt``;
+    returns the model."""
+    import torch
+    cfg = cfg or _train_cfg()
+    init = _config_model(cfg, torch.Generator().manual_seed(7))
+    _save_pt(init, cfg, f'{tmp}/{name}.pt')
     return init
 
 
@@ -1724,7 +1982,6 @@ def train_main_path(card, tmp):
     from unet_tpu_torch.ops import warp
     from unet_tpu_torch.train.trainer import make_predict_step_u8
     from unet_tpu_torch.utils.config import load_config
-    from unet_tpu_torch.utils.torch_port import load_torch_checkpoint
 
     config = one_rank_config(tmp)
     init = save_init(tmp)
@@ -1743,13 +2000,9 @@ def train_main_path(card, tmp):
     assert hist['warp_launches'] == [launches], hist['warp_launches']
     assert all(np.isfinite(hist['train_loss'] + hist['val_loss']))
     last = f'{hist["save_dir"]}/weights/last/model.pt'
-    before = init.state_dict()
-    after, _, _ = load_torch_checkpoint(last)
-    moved = [k for k in before if k.endswith('weight')
-             and not torch.equal(before[k], after[k])]
-    assert all(torch.isfinite(v.float()).all() for v in after.values())
-    assert len(moved) > 0.9 * sum(k.endswith('weight') for k in before)
-    log(f'train: {len(moved)} weight tensors moved from the initial '
+    moved, weights = _moved(init, hist['save_dir'])
+    assert moved > 0.9 * weights, (moved, weights)
+    log(f'train: {moved} weight tensors moved from the initial '
         f'weights; weights/last/model.pt written')
 
     model, meta = load_model(last, device=DEVICE)
@@ -1841,9 +2094,7 @@ def export_path(card, run_dir):
     meta = export_torch.main(argv)
     from_dir, dmeta = load_model(best, device=DEVICE)
     from_pt, pmeta = load_model(out, device=DEVICE)
-    rng = np.random.default_rng(23)
-    u8 = np.stack([_image(rng, IMG, IMG) for _ in range(2)])[:, None]
-    x = (torch.from_numpy(u8).to(DEVICE).float() / 255.0 - 0.5) / 0.5
+    x = _batch(23, 2)
     with torch.inference_mode():
         a, b = from_dir(x), from_pt(x)
     payload = torch.load(out, map_location='cpu', weights_only=False)
@@ -1855,6 +2106,259 @@ def export_path(card, run_dir):
     assert payload['epoch'] == meta['epoch'] == dmeta['epoch']
     assert set(payload) == {'epoch', 'model_state_dict',
                             'optimizer_state_dict', 'metrics', 'config'}
+
+
+# the variant runs of the train CLI: 10 synthetic volumes x 4 slices, whose
+# volume split leaves 8 training volumes, 32 slices: one full 32-slice
+# super-batch an epoch (batch 4 x accumulation 8), and 8 validation slices
+VARIANT_ARGS = ['--synthetic', '--synthetic-volumes', '10',
+                '--synthetic-slices', '4']
+VARIANT_EPOCHS = 2
+VARIANTS = {
+    'V1': {'model': {'type': 'unet', 'bilinear': True},
+           'scheduler': {'type': 'cosine_annealing'}},
+    'V2': {'model': {'type': 'attention_unet', 'bilinear': False,
+                     'deep_supervision': True},
+           'ema': {'enabled': True, 'warmup_epochs': 1},
+           'scheduler': {'type': 'reduce_on_plateau'},
+           'tpu': {'fused_attention_gate': True}},
+}
+
+
+class _Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, io.StringIO()
+
+    def write(self, s):
+        self.kept.write(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _variant_config(tmp, name):
+    """``one_rank_config`` with VARIANTS[name]'s sections merged in."""
+    import yaml
+    from unet_tpu_torch.utils.config import load_config
+    cfg = load_config(one_rank_config(tmp))
+    for section, values in VARIANTS[name].items():
+        cfg[section] = dict(cfg.get(section) or {}, **values)
+    path = f'{tmp}/{name}.yaml'
+    with open(path, 'w') as f:
+        yaml.safe_dump(cfg, f)
+    return path, cfg
+
+
+def _train_variant(tmp, name, config_path, *extra):
+    """The train CLI on a variant's config in this process: (history, its
+    printed log, warp launches, gate launches, eval forwards of an
+    AttentionUNet, peak device memory in GiB or None on the CPU)."""
+    import torch
+    from unet_tpu_torch.cli import train as train_cli
+    from unet_tpu_torch.models.unet import AttentionUNet
+    from unet_tpu_torch.ops import attention_gate as ag
+    from unet_tpu_torch.ops import warp
+    argv = ['--config', config_path, '--project', tmp, '--name', name,
+            *VARIANT_ARGS, *extra]
+    if DEVICE == 'cpu':
+        argv += ['--device', 'cpu']
+    forward = AttentionUNet.forward
+    evals = [0]
+
+    def counted(self, x):
+        evals[0] += not self.training
+        return forward(self, x)
+
+    warp.launch_count = ag.launch_count = 0
+    AttentionUNet.forward = counted
+    tee = _Tee(sys.stdout)
+    if DEVICE == 'cuda':
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        with contextlib.redirect_stdout(tee):
+            hist = train_cli.main(argv)
+    finally:
+        AttentionUNet.forward = forward
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30 if DEVICE == 'cuda'
+            else None)
+    return (hist, tee.kept.getvalue(), warp.launch_count, ag.launch_count,
+            evals[0], peak)
+
+
+def _serve_best(run_dir, want_gates):
+    """``load_model`` on ``run_dir/weights/best`` segments a 512^2 slice
+    (finite), launching the gate kernel ``want_gates`` times; returns the
+    model and the tumor pixels."""
+    import torch
+    from unet_tpu_torch.cli.predict import load_model
+    from unet_tpu_torch.ops import attention_gate as ag
+    from unet_tpu_torch.train.trainer import make_predict_step_u8
+    model, meta = load_model(f'{run_dir}/weights/best', device=DEVICE)
+    u8 = torch.from_numpy(np.array(_image(np.random.default_rng(41), IMG,
+                                          IMG)[None, None])).to(DEVICE)
+    ag.launch_count = 0
+    prob = make_predict_step_u8(model)(u8)
+    sync()
+    assert prob.shape == (1, 2, IMG, IMG) and torch.isfinite(prob).all()
+    if DEVICE == 'cuda':
+        assert ag.launch_count == want_gates, ag.launch_count
+    return model, meta, int((prob[0, 1] > 0.5).sum())
+
+
+def _moved(init, run_dir):
+    """(weight tensors moved from ``init``'s, weight tensors) of the run's
+    ``weights/last``; every value finite."""
+    import torch
+    from unet_tpu_torch.utils.torch_port import load_torch_checkpoint
+    after, _, _ = load_torch_checkpoint(f'{run_dir}/weights/last/model.pt')
+    assert all(torch.isfinite(v.float()).all() for v in after.values())
+    before = init.state_dict()
+    weights = [k for k in before if k.endswith('weight')]
+    return sum(not torch.equal(before[k], after[k]) for k in weights), len(
+        weights)
+
+
+def _ckpt(run_dir):
+    """(meta.json, train_state.pt) of the run's ``weights/last``."""
+    import torch
+    path = f'{run_dir}/weights/last'
+    return (json.loads(open(f'{path}/meta.json').read()),
+            torch.load(f'{path}/train_state.pt', map_location='cpu',
+                       weights_only=False))
+
+
+def variants_train_path(card, tmp):
+    """The train CLI on the variants the main train phase does not run
+    (VARIANTS), VARIANT_EPOCHS epochs each from weights of seed 7 at the
+    shipped width, 512^2, bf16: every loss finite, the weights moved, one
+    warp launch per super-batch, the scheduler's learning rates, and
+    ``weights/best`` served through ``load_model``. V2 also: the EMA
+    re-init logged at its warmup epoch and the EMA model validated with
+    the fused gate (4 gate launches per eval forward); then ``--resume``
+    of V2 to a third epoch and of that to a fourth: the EMA shadow and
+    its update count, and the plateau scheduler's state, continue from
+    each checkpoint (the shadow after the resumed step equals
+    ``ema_update`` of the checkpoint's shadow with the resumed weights;
+    the scheduler's state equals the checkpoint's stepped on the resumed
+    epoch's metric). Returns the warp launches."""
+    import torch
+    from unet_tpu_torch.train.schedules import create_scheduler
+    from unet_tpu_torch.train.trainer import EmaState, ema_update
+    from unet_tpu_torch.utils.plots import have_matplotlib
+    warp_total = 0
+    runs = {}
+    for name in VARIANTS:
+        config_path, cfg = _variant_config(tmp, name)
+        m = cfg['model']
+        init = save_init(tmp, cfg, f'{name}_init')
+        init_pt = f'{tmp}/{name}_init.pt'
+        t0 = time.perf_counter()
+        hist, text, warps, gates, evals, peak = _train_variant(
+            tmp, name, config_path, '--init-weights', init_pt, '--epochs',
+            str(VARIANT_EPOCHS))
+        wall = time.perf_counter() - t0
+        warp_total += warps
+        run_dir = hist['save_dir']
+        moved, weights = _moved(init, run_dir)
+        _, sched = create_scheduler(cfg['scheduler'], cfg['train']['lr'],
+                                    VARIANT_EPOCHS)
+        want_lr = ([sched(e) for e in range(VARIANT_EPOCHS)]
+                   if callable(sched) else [sched.lr] * VARIANT_EPOCHS)
+        fused = m['type'] == 'attention_unet' and cfg['tpu'].get(
+            'fused_attention_gate')
+        model, meta, px = _serve_best(run_dir, 4 if fused else 0)
+        log(f'variant {name}: {json.dumps(VARIANTS[name])} ran '
+            f'{VARIANT_EPOCHS} epochs in {wall:.1f} s: train loss '
+            f'{hist["train_loss"]}, val loss {hist["val_loss"]}, tumor Dice '
+            f'{hist["tumor_dice"]}, lr {hist["lr"]}; {warps} warp kernel '
+            f'launches; {gates} gate kernel launches in {evals} eval '
+            f'forwards; peak device memory '
+            f'{"not measured" if peak is None else f"{peak:.2f} GiB"}; '
+            f'{moved} of {weights} weight tensors moved; '
+            f'weights/best (epoch {meta["epoch"]}, {type(model).__name__}, '
+            f'bilinear {model.bilinear}) segmented a {IMG}^2 slice: {px} '
+            f'tumor px  [{card}]')
+        assert all(np.isfinite(hist['train_loss'] + hist['val_loss']))
+        assert moved > 0.9 * weights, (moved, weights)
+        assert warps == VARIANT_EPOCHS and hist['warp_launches'] == [warps]
+        assert np.allclose(hist['lr'], want_lr, rtol=1e-12), hist['lr']
+        assert (type(model).__name__ == {'unet': 'UNet', 'attention_unet':
+                                         'AttentionUNet'}[m['type']]
+                and model.bilinear == m['bilinear'])
+        if fused and DEVICE == 'cuda':
+            # every validation batch of every epoch, and the plot's forward
+            want = VARIANT_EPOCHS * 2 + have_matplotlib()
+            assert evals == want and gates == 4 * evals, (evals, gates)
+        if cfg['ema']['enabled']:
+            w = cfg['ema']['warmup_epochs']
+            assert (f'EMA re-initialized from training model at epoch {w + 1}'
+                    in text), 'no EMA re-init in the log'
+            assert 'Val [EMA model]' in text
+        runs[name] = (run_dir, cfg)
+        del init, model
+
+    # --resume of V2, twice: the checkpoint after the EMA re-init holds a
+    # shadow equal to the weights, the one after the third epoch a shadow
+    # one update away from them
+    run_dir, cfg = runs['V2']
+    model = _config_model(cfg).to(DEVICE, memory_format=torch.channels_last)
+    config_path = f'{tmp}/V2.yaml'
+    for epochs in (VARIANT_EPOCHS + 1, VARIANT_EPOCHS + 2):
+        meta0, ts0 = _ckpt(run_dir)
+        t0 = time.perf_counter()
+        hist, text, warps, gates, evals, _ = _train_variant(
+            tmp, f'V2_to_{epochs}', config_path, '--resume',
+            f'{run_dir}/weights/last', '--epochs', str(epochs))
+        wall = time.perf_counter() - t0
+        warp_total += warps
+        run_dir = hist['save_dir']
+        meta1, ts1 = _ckpt(run_dir)
+        model.load_state_dict(ts1['model_state_dict'])
+        e0, e1 = ts0['ema'], ts1['ema']
+        ema_was_weights = all(torch.equal(v, ts0['model_state_dict'][k])
+                              for k, v in e0['params'].items())
+        replay = ema_update(EmaState(
+            params={k: v.to(DEVICE, copy=True) for k, v in
+                    e0['params'].items()},
+            buffers={k: v.to(DEVICE, copy=True) for k, v in
+                     e0['buffers'].items()},
+            updates=e0['updates']), model, cfg['ema'].get('decay', 0.99))
+        ema_same = all(torch.equal(replay.params[k].cpu(), v)
+                       for k, v in e1['params'].items())
+        # the plateau state: the checkpoint's, stepped on the resumed
+        # epoch's metric (a scheduler not restored would start at -inf)
+        tumor = meta1['metrics']['class_dice']['tumor']
+        _, sched = create_scheduler(cfg['scheduler'], cfg['train']['lr'],
+                                    epochs)
+        sched.load_state_dict(meta0['scheduler'])
+        sched.step(tumor)
+        log(f'variant V2 --resume to epoch {epochs}: ran epoch '
+            f'{meta1["epoch"] + 1} (optimizer step {meta1["step"]}) in '
+            f'{wall:.1f} s, {warps} warp kernel launches, {gates} gate '
+            f'kernel launches in {evals} eval forwards; EMA updates '
+            f'{e0["updates"]} -> {e1["updates"]}, shadow equals ema_update '
+            f'of the checkpoint\'s with the resumed weights: {ema_same} '
+            f'(the checkpoint\'s shadow equalled its weights: '
+            f'{ema_was_weights}); plateau scheduler {meta0["scheduler"]} -> '
+            f'{meta1["scheduler"]} (lr {hist["lr"]})  [{card}]')
+        assert meta1['epoch'] == epochs - 1 and len(hist['train_loss']) == 1
+        assert meta1['step'] == meta0['step'] + 1
+        assert all(np.isfinite(hist['train_loss'] + hist['val_loss']))
+        assert warps == 1 and hist['warp_launches'] == [1]
+        assert e1['updates'] == e0['updates'] + 1 and ema_same
+        # the second resume's checkpoint holds a shadow apart from its
+        # weights, so a shadow re-drawn from the weights would fail above
+        assert ema_was_weights == (epochs == VARIANT_EPOCHS + 1)
+        assert meta1['scheduler'] == sched.state_dict(), (
+            meta1['scheduler'], sched.state_dict())
+        assert math.isfinite(meta0['scheduler']['best'])
+        assert hist['lr'] == [meta0['scheduler']['lr']]
+        if DEVICE == 'cuda':
+            assert gates == 4 * evals and evals >= 2, (gates, evals)
+    return warp_total
 
 
 def overfit_path(card, tmp):
@@ -2305,14 +2809,23 @@ def _loss_fn(cfg):
 # ---------------------------------------------------------------- times
 
 def time_gates(card, errs):
+    """Each gate's kernel and plain times beside its bound, L2 flushed:
+    the four of the bilinear model in both types and the four of the
+    transposed one in bfloat16 (the main path's type). Returns the
+    bilinear model's bfloat16 sums (the main path's four gates), with the
+    transposed model's sums under ``'transposed'``."""
     import torch
     from unet_tpu_torch.ops import attention_gate as ag
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEVICE)
-    total = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 't_bytes': 0.0,
-             't_ops': 0.0}
-    for dtype in (torch.bfloat16, torch.float32):
+    sets = [(torch.bfloat16, 0, GATES), (torch.float32, 0, GATES),
+            (torch.bfloat16, len(GATES), GATES_T)]
+    totals = {}
+    for dtype, first, gates in sets:
         name = str(dtype).split('.')[-1]
-        for i, (cg, h, cx, inter) in enumerate(GATES):
+        total = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 't_bytes': 0.0,
+                 't_ops': 0.0}
+        for j, (cg, h, cx, inter) in enumerate(gates):
+            i = first + j
             args = gate_inputs(cg, h, cx, inter, dtype, seed=i)
             bound, by, nbytes, flops = gate_bound(cg, h, cx, inter, dtype)
             with torch.no_grad():
@@ -2321,28 +2834,40 @@ def time_gates(card, errs):
                              flush)
                 k2 = time_ms(lambda: ag.attention_gate_fused(*args), 10, flush)
             ms = (k1 + k2) / 2
-            log(f'TIME gate {i + 1} {name} b{BATCH} g={cg}x{h}^2 '
+            log(f'TIME gate {_gate_label(i)} {name} b{BATCH} g={cg}x{h}^2 '
                 f'x={cx}x{2 * h}^2 I={inter}: kernel {k1:.4f} / {k2:.4f} ms, '
                 f'plain {p1:.4f} ms, bound {bound:.4f} ms ({by}; '
                 f'{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), '
                 f'roofline share {bound / ms:.1%}  [{card}]')
-            if dtype == torch.bfloat16:  # the main path's type
-                total['ms'] += ms
-                total['plain_ms'] += p1
-                total['bound_ms'] += bound
-                total['t_bytes'] += nbytes / HBM_BYTES_PER_S * 1e3
-                total['t_ops'] += flops / PEAK_FLOPS[name] * 1e3
+            total['ms'] += ms
+            total['plain_ms'] += p1
+            total['bound_ms'] += bound
+            total['t_bytes'] += nbytes / HBM_BYTES_PER_S * 1e3
+            total['t_ops'] += flops / PEAK_FLOPS[name] * 1e3
+        total['bound_by'] = ('bytes' if total['t_bytes'] >= total['t_ops']
+                             else 'operations')
+        totals[name, first] = total
     del flush
-    total['bound_by'] = ('bytes' if total['t_bytes'] >= total['t_ops']
-                         else 'operations')
-    log(f'TIME gates, the four of one bf16 forward at b{BATCH}: kernel '
-        f'{total["ms"]:.4f} ms, plain {total["plain_ms"]:.4f} ms, bound '
-        f'{total["bound_ms"]:.4f} ms ({total["bound_by"]}), roofline share '
-        f'{total["bound_ms"] / total["ms"]:.1%}; the earlier design took '
-        f'{PREV_MS["attention_gate"]} ms  [{card}]')
-    total['max_abs_err'] = max(e for (i, n), e in errs.items()
-                               if n == 'bfloat16')
-    return total
+    for (name, first), total in totals.items():
+        if name != 'bfloat16':
+            continue
+        model = 'transposed' if first else 'bilinear'
+        log(f'TIME gates, the four of one bf16 forward of the {model} model '
+            f'at b{BATCH}: kernel {total["ms"]:.4f} ms, plain '
+            f'{total["plain_ms"]:.4f} ms, bound {total["bound_ms"]:.4f} ms '
+            f'({total["bound_by"]}), roofline share '
+            f'{total["bound_ms"] / total["ms"]:.1%}; the earlier design took '
+            f'{PREV_MS["attention_gate"]} ms for the bilinear four  [{card}]')
+    main = totals['bfloat16', 0]
+    main['max_abs_err'] = max(e for (i, n), e in errs.items()
+                              if n == 'bfloat16' and i < len(GATES))
+    t = totals['bfloat16', len(GATES)]
+    main['transposed'] = {
+        'ms': t['ms'], 'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
+        'bound_by': t['bound_by'],
+        'max_abs_err': max(e for (i, n), e in errs.items()
+                           if n == 'bfloat16' and i >= len(GATES))}
+    return main
 
 
 def time_launch_host(card):
@@ -2580,6 +3105,237 @@ def inference_ab(parent, pairs):
     log(card_line())
 
 
+# Full-schedule training on one card against the JAX package's recorded
+# best validation tumor Dice on the same synthetic task: each run is the
+# train CLI on a shipped config with ``tpu.data_parallel: 1`` and the
+# overrides given, to the epochs of its record. The port's synthetic
+# slices are byte-identical to the JAX package's for the same seed, which
+# the config's ``seed`` also sets; augmentation and init draw from other
+# generators, so a run is held to its record less QUALITY_MARGIN (twice
+# the spread of the JAX package's two 30-epoch seeds, 0.9472 and 0.9624).
+QUALITY_MARGIN = 0.03
+QUALITY_512 = ['--synthetic', '--synthetic-volumes', '40',
+               '--synthetic-slices', '16']
+QUALITY_RUNS = {
+    'Q1': dict(config='configs/lung_tumor.yaml', seed=1337, epochs=30,
+               model={}, args=QUALITY_512,
+               record='docs/quality_r2/best_s1337.json'),
+    'Q2': dict(config='configs/lung_tumor.yaml', seed=7, epochs=30,
+               model={}, args=QUALITY_512,
+               record='docs/quality_r2/best_s7.json'),
+    'Q3': dict(config='configs/lung_tumor.yaml', seed=42, epochs=25,
+               model={'type': 'unet'}, args=QUALITY_512,
+               record='docs/quality_r2/best_unet.json'),
+    'Q4': dict(config='configs/lung_tumor.yaml', seed=42, epochs=25,
+               model={'deep_supervision': True}, args=QUALITY_512,
+               record='docs/quality_r2/best_ds.json'),
+    'Q5': dict(config='configs/parity_control.yaml', seed=42, epochs=40,
+               model={}, args=['--synthetic', '--synthetic-volumes', '24',
+                               '--synthetic-slices', '6', '--img-size',
+                               '128'],
+               record='docs/parity_r3/jax_newinit_best_meta.json'),
+}
+
+
+def _record_dice(path):
+    """The JAX run's best validation tumor Dice and its epoch (from 1)
+    from a ``docs/quality_r2`` block or a ``weights/best/meta.json``."""
+    rec = json.loads(open(path).read())
+    if 'tumor_dice' in rec:
+        return rec['tumor_dice'], rec['best_epoch']
+    return rec['metrics']['class_dice']['tumor'], rec['epoch'] + 1
+
+
+def quality_runs(out_dir, names):
+    """Each QUALITY_RUNS entry in ``names`` through the train CLI in this
+    process, its run directory in a temporary directory; writes
+    ``out_dir/<name>.json`` (the best epoch's metric block as
+    ``weights/best/meta.json`` has it, the per-epoch validation tumor
+    Dice and train seconds, the wall seconds, the record and the bound,
+    the card) as each run ends, then ``out_dir/trajectories.tsv`` over
+    every ``<name>.json`` there. Returns 0 when every run ran and met its
+    bound, else 1."""
+    import gc
+    import torch
+    import yaml
+    from unet_tpu_torch.cli import train as train_cli
+    from unet_tpu_torch.utils.config import load_config
+    card = card_line() if DEVICE == 'cuda' else 'cpu'
+    os.makedirs(out_dir, exist_ok=True)
+    failed = []
+    for name in names:
+        spec = QUALITY_RUNS[name]
+        record, record_epoch = _record_dice(spec['record'])
+        bound = record - QUALITY_MARGIN
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = load_config(spec['config'])
+            cfg['seed'] = spec['seed']
+            cfg['model'].update(spec['model'])
+            cfg.setdefault('tpu', {})['data_parallel'] = 1
+            config_path = f'{tmp}/{name}.yaml'
+            with open(config_path, 'w') as f:
+                yaml.safe_dump(cfg, f)
+            argv = ['--config', config_path, '--project', tmp, '--name', name,
+                    '--epochs', str(spec['epochs']), *spec['args']]
+            if DEVICE == 'cpu':
+                argv += ['--device', 'cpu']
+            log(f'quality {name}: {spec["config"]} with seed {spec["seed"]}, '
+                f'model {json.dumps(cfg["model"])}, {spec["epochs"]} epochs, '
+                f'{" ".join(spec["args"])}')
+            t0 = time.perf_counter()
+            try:
+                hist = train_cli.main(argv)
+            except Exception as e:  # the other runs still run
+                log(f'quality {name}: FAILED: {e!r}')
+                failed.append(name)
+                continue
+            wall = time.perf_counter() - t0
+            best = json.loads(open(f'{hist["save_dir"]}/weights/best/'
+                                   'meta.json').read())
+        dice = hist['tumor_dice']
+        tumor = best['metrics']['class_dice']['tumor']
+        out = {'run': name, 'config': spec['config'], 'seed': spec['seed'],
+               'model': cfg['model'], 'args': spec['args'],
+               'epochs': spec['epochs'], 'best_epoch': best['epoch'] + 1,
+               'monitor': 'class_dice.tumor', 'tumor_dice': tumor,
+               'metrics': best['metrics'],
+               'val_tumor_dice': dice, 'train_seconds': hist['train_seconds'],
+               'wall_seconds': wall, 'seconds_per_epoch': wall / len(dice),
+               'jax_record': spec['record'], 'jax_tumor_dice': record,
+               'jax_best_epoch': record_epoch, 'bound': bound,
+               'meets_bound': tumor >= bound, 'card': card}
+        with open(f'{out_dir}/{name}.json', 'w') as f:
+            json.dump(out, f, indent=1)
+        log(f'quality {name}: best val tumor Dice {tumor:.4f} at epoch '
+            f'{best["epoch"] + 1} of {len(dice)} (JAX {record:.4f} at epoch '
+            f'{record_epoch}; bound {bound:.4f}: '
+            f'{"met" if tumor >= bound else "NOT MET"}); '
+            f'{wall:.1f} s, {wall / len(dice):.2f} s per epoch, train '
+            f'{np.median(hist["train_seconds"]):.2f} s per epoch (median)  '
+            f'[{card}]')
+        log(f'quality {name}: val tumor Dice per epoch '
+            + ' '.join(f'{d:.4f}' for d in dice))
+        if tumor < bound:
+            failed.append(name)
+        del hist
+        gc.collect()
+        if DEVICE == 'cuda':
+            torch.cuda.empty_cache()
+    quality_table(out_dir)
+    log(f'quality: {len(names) - len(failed)} of {len(names)} runs ran and '
+        f'met their bounds; failed or short: {failed}')
+    log(card)
+    return 1 if failed else 0
+
+
+# the JAX-side per-epoch validation tumor Dice of Q5's control
+# (docs/parity_r3/trajectories.tsv): the reference torch project and the
+# JAX package with its torch-matched init
+QUALITY_REFERENCE = ('docs/parity_r3/trajectories.tsv',
+                     ('torch_ref', 'jax_newinit'))
+
+
+def quality_table(out_dir):
+    """``out_dir/trajectories.tsv`` from every ``<run>.json`` there: the
+    per-epoch validation tumor Dice of each run, then Q5's two reference
+    columns of QUALITY_REFERENCE."""
+    runs = sorted(p for p in os.listdir(out_dir) if p.endswith('.json'))
+    cols = {r[:-5]: json.loads(open(f'{out_dir}/{r}').read())[
+        'val_tumor_dice'] for r in runs}
+    path, names = QUALITY_REFERENCE
+    with open(path) as f:
+        head, *lines = [line.rstrip('\n').split('\t') for line in f]
+    for name in names:
+        cols[f'Q5 {name}'] = [float(v[head.index(name)]) for v in lines]
+    longest = max(len(c) for c in cols.values())
+    with open(f'{out_dir}/trajectories.tsv', 'w') as f:
+        f.write('epoch\t' + '\t'.join(cols) + '\n')
+        for e in range(longest):
+            f.write(f'{e + 1}\t' + '\t'.join(
+                f'{c[e]:.4f}' if e < len(c) else '' for c in cols.values())
+                + '\n')
+
+
+def gate_ab(parent):
+    """The gate kernel of another checkout (``git archive`` of a parent
+    commit, unpacked in ``parent``) against this one's, on the same
+    inputs in the same process: its ``csrc/attention_gate.cu`` built with
+    the same flags, loaded in place of this tree's library in turns. At
+    every gate shape the smoke holds (GATES, GATES_T, GATE_EXTRA, and the
+    band form of GATES and GATES_T over SPATIAL_BANDS bands), in float32
+    and bfloat16, the two outputs must be equal bit for bit. Prints the
+    count of shapes compared and the kernels' times at the GATES_T
+    shapes."""
+    import ctypes
+    import torch
+    from unet_tpu_torch.core.spatial import band_edges
+    from unet_tpu_torch.ops import _build
+    from unet_tpu_torch.ops import attention_gate as ag
+    from unet_tpu_torch.ops.resize import source_rows
+    card = card_line()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    libs = {'change': _build.load('attention_gate')}
+    with tempfile.TemporaryDirectory() as tmp:
+        so = f'{tmp}/libattention_gate.so'
+        src = f'{parent}/unet_tpu_torch/csrc/attention_gate.cu'
+        subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, '-o', so, src],
+                       check=True, capture_output=True, text=True)
+        libs['parent'] = ctypes.CDLL(so)
+
+    def run(which, *args):
+        _build._libs['attention_gate'] = libs[which]
+        return ag.attention_gate_fused(*args)
+
+    cl = torch.channels_last
+    cases = []
+    for i, (cg, h, cx, inter) in enumerate(GATES + GATES_T):
+        cases.append((f'gate {_gate_label(i)}', (cg, h, cx, inter), {}, None))
+        edges = [e * 2 * h // IMG for e in band_edges(IMG, SPATIAL_BANDS)]
+        cases.append((f'gate {_gate_label(i)} bands {edges}',
+                      (cg, h, cx, inter), {}, edges))
+    for j, e in enumerate(GATE_EXTRA):
+        cases.append((f'gate extra {j}', (e['cg'], e['h'], e['cx'],
+                                          e['inter']),
+                      dict(n=e['n'], w=e['w']), None))
+    compared = differ = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split('.')[-1]
+        for k, (label, (cg, h, cx, inter), kw, edges) in enumerate(cases):
+            g, x, *rest = gate_inputs(cg, h, cx, inter, dtype, seed=k, **kw)
+            if edges is None:
+                calls = [(g, x, *rest)]
+            else:
+                calls = []
+                for s, e in zip(edges[:-1], edges[1:]):
+                    lo, hi = source_rows(h, 2 * h, s, e)
+                    calls.append((g[:, :, lo:hi].contiguous(memory_format=cl),
+                                  x[:, :, s:e].contiguous(memory_format=cl),
+                                  *rest, ag.GateBand(s, lo, h, 2 * h)))
+            for args in calls:
+                a, b = run('parent', *args), run('change', *args)
+                sync()
+                compared += 1
+                if not torch.equal(a, b):
+                    differ += 1
+                    log(f'gate ab: {label} {name}: outputs differ, max '
+                        f'{(a.float() - b.float()).abs().max().item():.3g}')
+    times = []
+    for cg, h, cx, inter in GATES_T:
+        args = gate_inputs(cg, h, cx, inter, torch.bfloat16, seed=0)
+        t = {'parent': 0.0, 'change': 0.0}
+        for w in ('parent', 'change', 'change', 'parent'):
+            t[w] += time_ms(lambda: run(w, *args), 10) / 2
+        times.append(t)
+    _build._libs['attention_gate'] = libs['change']
+    log(f'gate ab: {compared} launches compared (float32 and bfloat16, '
+        f'{len(cases)} shapes and band sets each), {differ} differ from the '
+        f'parent\'s kernel; bf16 ms at GATES_T, parent / change: '
+        + ', '.join(f'{t["parent"]:.4f} / {t["change"]:.4f}' for t in times)
+        + f'  [{card}]')
+    return 1 if differ else 0
+
+
 def memory_ceiling():
     """The largest square image the unsharded bf16 eval forward of the
     smoke's AttentionUNet-64 (fused gate on) takes on one card, at batch
@@ -2675,11 +3431,19 @@ def main():
     timed('spatial', spatial_path, model, card)
     del model
     torch.cuda.empty_cache()
+    model_t, t_launches = timed('transposed', transposed_path, card)
+    timed('spatial_transposed', spatial_transposed, model_t, card)
+    del model_t
+    torch.cuda.empty_cache()
+    timed('unet', plain_unet_path, card)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         warp_launches, run_dir = timed('train', train_main_path, card, tmp)
         torch.cuda.empty_cache()
         timed('resume', resume_path, card, tmp, run_dir)
         timed('export', export_path, card, run_dir)
+        torch.cuda.empty_cache()
+        timed('variants', variants_train_path, card, tmp)
         torch.cuda.empty_cache()
         timed('overfit', overfit_path, card, tmp)
         torch.cuda.empty_cache()
@@ -2704,6 +3468,9 @@ def main():
         'bound_ms': t['bound_ms'],
         'bound_by': t['bound_by'],
         'library_ms': None,  # no single PyTorch call computes the gate
+        # the four gates of the transposed model (Cg = 2 Cx), and their
+        # launches on its predict CLI path
+        'transposed': dict(t['transposed'], launches=t_launches),
     }, {
         'name': 'warp',
         'route': 'cuda',
@@ -2752,4 +3519,8 @@ if __name__ == '__main__':
         sys.exit(inference_ab(sys.argv[2], int(sys.argv[3])))
     if sys.argv[1:2] == ['--memory-ceiling']:
         sys.exit(memory_ceiling())
+    if sys.argv[1:2] == ['--gate-ab']:
+        sys.exit(gate_ab(sys.argv[2]))
+    if sys.argv[1:2] == ['--quality']:
+        sys.exit(quality_runs(sys.argv[2], sys.argv[3:] or QUALITY_RUNS))
     sys.exit(main())

@@ -21,6 +21,8 @@ CASES = [
     ((2, 16, 16, 32), (2, 32, 32, 16)),
     ((1, 16, 16, 64), (1, 32, 32, 64)),
     ((2, 32, 32, 128), (2, 64, 64, 64)),
+    # Cg = 2 Cx, as the transposed (bilinear: false) AttentionUNet's gates
+    ((2, 16, 16, 64), (2, 32, 32, 32)),
 ]
 
 

@@ -11,10 +11,13 @@ import torch
 
 from unet_tpu_torch.ops import attention_gate as gate
 
-# (Cg, h_in, w_in, Cx, I): the four gates of AttentionUNet-64 at 512^2, and
-# a non-square, non-power-of-two one
+# (Cg, h_in, w_in, Cx, I): the four gates of AttentionUNet-64 at 512^2,
+# bilinear (Cg = Cx) and transposed (bilinear: false gates the skip with the
+# un-upsampled decoder map, Cg = 2 Cx), and a non-square, non-power-of-two one
 MODEL_GATES = [(512, 32, 32, 512, 256), (256, 64, 64, 256, 128),
                (128, 128, 128, 128, 64), (64, 256, 256, 64, 32),
+               (1024, 32, 32, 512, 256), (512, 64, 64, 256, 128),
+               (256, 128, 128, 128, 64), (128, 256, 256, 64, 32),
                (128, 24, 40, 128, 64)]
 
 

@@ -118,18 +118,21 @@ def test_eval_logits_match_flax_bf16():
     assert np.abs(got - want).max() <= 0.02 * scale
 
 
-def test_fused_gate_model_matches_jax_fused_path(monkeypatch, capsys):
+@pytest.mark.parametrize('bilinear', [True, False])
+def test_fused_gate_model_matches_jax_fused_path(bilinear, monkeypatch,
+                                                 capsys):
     """The slice's configuration, small: AttentionUNet with the fused
     gate at 256^2, the smallest input at which all four gates pass the
-    guard. The JAX side runs its Pallas kernel in interpret mode (as
-    tests/test_pallas.py:66,79 do; the TPU backend flag also switches its
-    resize and psi to their matmul forms, which compute the same
-    function); the port folds BatchNorm the same way and runs the
-    kernel's plain version on the CPU."""
+    guard, bilinear and transposed (whose gates take the un-upsampled
+    decoder map: Cg = 2 Cx). The JAX side runs its Pallas kernel in
+    interpret mode (as tests/test_pallas.py:66,79 do; the TPU backend
+    flag also switches its resize and psi to their matmul forms, which
+    compute the same function); the port folds BatchNorm the same way and
+    runs the kernel's plain version on the CPU."""
     from jax.experimental.pallas import tpu as pltpu
 
     jm = jax_create_model('attention_unet', base_features=4,
-                          use_fused_gate=True)
+                          bilinear=bilinear, use_fused_gate=True)
     variables = jax_variables(jm, seed=3)
     x = np.random.default_rng(5).standard_normal(
         (1, 256, 256, 1)).astype(np.float32)
@@ -143,13 +146,17 @@ def test_fused_gate_model_matches_jax_fused_path(monkeypatch, capsys):
 
     fused_calls = []
     real = layers.attention_gate_fused
-    monkeypatch.setattr(layers, 'attention_gate_fused',
-                        lambda *a: fused_calls.append(a[1].shape) or real(*a))
+    monkeypatch.setattr(
+        layers, 'attention_gate_fused',
+        lambda *a: fused_calls.append((a[0].shape[1], a[1].shape[1],
+                                       a[1].shape[2])) or real(*a))
     model = _port_model('attention_unet', variables, base_features=4,
-                        use_fused_gate=True)
+                        bilinear=bilinear, use_fused_gate=True)
     with torch.no_grad():
         got = model(torch.from_numpy(x).permute(0, 3, 1, 2))
-    assert [s[2] for s in fused_calls] == [32, 64, 128, 256]
+    ratio = 1 if bilinear else 2
+    assert fused_calls == [(ratio * c, c, h) for c, h in
+                           ((32, 32), (16, 64), (8, 128), (4, 256))]
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want,
                                rtol=2e-2, atol=1e-3)
 

@@ -310,6 +310,35 @@ def test_resume_replays_an_uninterrupted_run(tmp_path):
     assert a['ema']['updates'] == b['ema']['updates']
 
 
+def test_resume_replays_plateau_reductions(tmp_path):
+    """A plateau scheduler that reduces the learning rate on every epoch
+    that does not raise the monitored metric (patience 0; the validation
+    loss as the monitor in mode max, so every falling loss is a bad
+    epoch): a run resumed at epoch 3 takes the learning rates and ends in
+    the scheduler state of an uninterrupted run. The checkpoint of epoch
+    2 holds the state after epoch 2's step, the one epoch 3 reads."""
+    def config(name, epochs):
+        p = _small_config(tmp_path, name, epochs, scheduler={
+            'type': 'reduce_on_plateau', 'patience': 0, 'factor': 0.5,
+            'min_lr': 1e-6})
+        cfg = yaml.safe_load(p.read_text())
+        cfg['early_stopping'] = {'enabled': False, 'monitor': 'loss',
+                                 'mode': 'max'}
+        p.write_text(yaml.safe_dump(cfg))
+        return p
+
+    full = _train(config('f4', 4), 'full')
+    _train(config('p2', 2), 'part')
+    res = _train(config('r4', 4), 'res', '--resume',
+                 str(tmp_path / 'runs' / 'part' / 'weights' / 'last'))
+    assert full['lr'][2:] != full['lr'][:2]  # the schedule did reduce
+    assert res['lr'] == full['lr'][2:]
+    assert res['val_loss'] == full['val_loss'][2:]
+    runs = tmp_path / 'runs'
+    assert (_meta(runs / 'res')['scheduler']
+            == _meta(runs / 'full')['scheduler'])
+
+
 def test_resume_auto_continues_the_run_in_place(tmp_path):
     _train(_small_config(tmp_path, 'c1', 1), 'auto_exp')
     run = tmp_path / 'runs' / 'auto_exp'

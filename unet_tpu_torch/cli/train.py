@@ -559,7 +559,15 @@ def _train(args, config, device, rank, world):
         log(f"  Tumor Dice: {val_results['class_dice'].get('tumor', 0):.4f}"
             f" | Tumor IoU: {val_results['class_iou'].get('tumor', 0):.4f}")
 
+        # every rank holds the same global metrics, so every rank takes
+        # the same scheduler and early-stopping decisions
+        monitored = get_nested_metric(val_results, monitor)
+        if sched_kind == 'plateau':
+            scheduler.step(monitored)
+
         if checkpoint is not None:
+            # the plateau state after this epoch's step: the one the next
+            # epoch reads, so a resumed run steps as an uninterrupted one
             sched_state = (scheduler.state_dict() if sched_kind == 'plateau'
                            else None)
             ema_state = (None if ema is None else
@@ -572,11 +580,6 @@ def _train(args, config, device, rank, world):
                                 'model_state_dict': model.state_dict(),
                                 'ema': ema_state, 'aug_step': aug_step})
 
-        # every rank holds the same global metrics, so every rank takes
-        # the same scheduler and early-stopping decisions
-        monitored = get_nested_metric(val_results, monitor)
-        if sched_kind == 'plateau':
-            scheduler.step(monitored)
         if early_stopping and early_stopping(monitored):
             log('\nEarly stopping triggered!')
             break

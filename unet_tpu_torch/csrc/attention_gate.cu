@@ -10,9 +10,9 @@
 //   att  = sigmoid(t . wpsi + bpsi)              (f32, rounded to T)
 //   out  = x * att
 //
-// with T the compute type (bf16 on the main path, f32 for tight checks). The
-// rounding points are the ones _gate_kernel has, so the kernel computes the same
-// function as the TPU one.
+// with T the compute type. Two kernels: bf16 (the main path) rounds at the points
+// _gate_kernel has, so it computes the same function as the TPU one; f32 (for
+// tight checks) rounds nowhere but in its f32 arithmetic.
 //
 // What bounds it on an H100: bytes. Per output pixel it reads Cx + Cg/4 channels
 // and writes Cx, and does 2*(Cg+Cx)*I flops (I = inter channels = Cx/2). In bf16
@@ -70,9 +70,9 @@
 // The bf16 kernel takes shapes with exactly 2x upsampling per axis (what the
 // model's guard, fused_shapes_supported, admits) and Cg, Cx, I multiples of 8
 // (16-byte rows for TMA; the wrapper pads all three with zeros, which is exact
-// for the reason above); the launch function refuses the rest. The float32 variant (for tight checks) is the first
-// version's kernel: a register-blocked f32 FMA loop on the CUDA cores over a tile
-// staged K-major in shared memory; it takes any shape.
+// for the reason above); the launch function refuses the rest. The float32 kernel
+// (for tight checks) is the first version's: a register-blocked f32 FMA loop on the
+// CUDA cores over a tile staged K-major in shared memory; it takes any shape.
 //
 // Row bands. The height-sharded forward (core/spatial.py) asks for rows
 // [y_off, y_off + h_out) of the output of a map h_out_full rows high, with g
@@ -105,18 +105,7 @@ constexpr int kThreads = 256;  // 16 pixel groups x 16 inter-channel groups
 constexpr int kKC = 32;        // weight rows staged per step
 constexpr size_t kMaxTileBytes = 96 * 1024;  // budget for the staged tile
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-
-// Round an f32 value to T and back: the points where the TPU kernel casts.
-template <typename T> __device__ __forceinline__ float round_t(float v) {
-  return to_f<T>(from_f<T>(v));
-}
-
-template <typename T, int N> struct alignas(sizeof(T) * N) Vec { T v[N]; };
+template <int N> struct alignas(sizeof(float) * N) Vec { float v[N]; };
 
 // Where a band of rows lies in the whole map (see the note at the head).
 struct Band {
@@ -133,27 +122,29 @@ __host__ __device__ constexpr int tile_stride(int tp, int pt) {
 
 __host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) / 16 * 16; }
 
-template <typename T, int PT>
+template <int PT>
 __host__ __device__ constexpr size_t tile_bytes(int kp) {
-  return align16(static_cast<size_t>(kp) * tile_stride(16 * PT, PT) * sizeof(T));
+  return align16(static_cast<size_t>(kp) * tile_stride(16 * PT, PT) * sizeof(float));
 }
 
-template <typename T, int PT, int IPT>
+template <int PT, int IPT>
 __host__ __device__ constexpr size_t smem_bytes(int kp) {
   // tile + weight chunk + per-pixel taps (2 row offsets, 2 columns, 4 weights)
   // + per-pixel attention
-  return tile_bytes<T, PT>(kp) + sizeof(float) * kKC * 16 * IPT +
+  return tile_bytes<PT>(kp) + sizeof(float) * kKC * 16 * IPT +
          16 * PT * (2 * sizeof(long long) + 2 * sizeof(int) + 5 * sizeof(float));
 }
 
-template <typename T, int PT, int IPT>
+// A tile of 16 * PT output pixels per block; each thread accumulates PT pixels
+// x IPT inter channels, walking I in chunks of 16 * IPT.
+template <int PT, int IPT>
 __global__ void __launch_bounds__(kThreads)
-gate_kernel(const T* __restrict__ g, const T* __restrict__ x,
-            const T* __restrict__ wg, const T* __restrict__ wx,
-            const float* __restrict__ badd, const T* __restrict__ wpsi,
-            const float* __restrict__ bpsi, T* __restrict__ out, int n,
-            int h_in, int w_in, int h_out, int w_out, int cg, int cx, int inter,
-            Band band, float scale_h, float scale_w) {
+gate_f32_kernel(const float* __restrict__ g, const float* __restrict__ x,
+                const float* __restrict__ wg, const float* __restrict__ wx,
+                const float* __restrict__ badd, const float* __restrict__ wpsi,
+                const float* __restrict__ bpsi, float* __restrict__ out, int n,
+                int h_in, int w_in, int h_out, int w_out, int cg, int cx, int inter,
+                Band band, float scale_h, float scale_w) {
   constexpr int TP = 16 * PT;
   constexpr int IC = 16 * IPT;
   constexpr int TPS = tile_stride(TP, PT);
@@ -161,12 +152,12 @@ gate_kernel(const T* __restrict__ g, const T* __restrict__ x,
   const int Kp = (K + kKC - 1) / kKC * kKC;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  T* As = reinterpret_cast<T*>(smem);  // [Kp][TPS]: rows [0,cg) g_up, [cg,K) x
-  float* Bs = reinterpret_cast<float*>(smem + tile_bytes<T, PT>(Kp));  // [kKC][IC]
-  long long* row = reinterpret_cast<long long*>(Bs + kKC * IC);         // [TP][2]
-  int* col = reinterpret_cast<int*>(row + 2 * TP);                      // [TP][2]
-  float* wts = reinterpret_cast<float*>(col + 2 * TP);                  // [TP][4]
-  float* att_s = wts + 4 * TP;                                          // [TP]
+  float* As = reinterpret_cast<float*>(smem);  // [Kp][TPS]: rows [0,cg) g_up, [cg,K) x
+  float* Bs = reinterpret_cast<float*>(smem + tile_bytes<PT>(Kp));  // [kKC][IC]
+  long long* row = reinterpret_cast<long long*>(Bs + kKC * IC);     // [TP][2]
+  int* col = reinterpret_cast<int*>(row + 2 * TP);                  // [TP][2]
+  float* wts = reinterpret_cast<float*>(col + 2 * TP);              // [TP][4]
+  float* att_s = wts + 4 * TP;                                      // [TP]
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;  // inter-channel group
@@ -195,38 +186,37 @@ gate_kernel(const T* __restrict__ g, const T* __restrict__ x,
     row[2 * tid + 1] = (static_cast<long long>(b) * h_in + y1 - band.g_off) * w_in;
     col[2 * tid] = x0;
     col[2 * tid + 1] = min(x0 + 1, w_in - 1);
-    // the TPU kernel's interpolation matrices are cast to T
-    wts[4 * tid] = round_t<T>(1.f - fy);
-    wts[4 * tid + 1] = round_t<T>(fy);
-    wts[4 * tid + 2] = round_t<T>(1.f - fx);
-    wts[4 * tid + 3] = round_t<T>(fx);
+    wts[4 * tid] = 1.f - fy;
+    wts[4 * tid + 1] = fy;
+    wts[4 * tid + 2] = 1.f - fx;
+    wts[4 * tid + 3] = fx;
   }
   __syncthreads();
 
-  // 2. Stage the tile K-major. g_up: W lerp rounded to T, then H lerp rounded.
+  // 2. Stage the tile K-major. g_up: the W lerp, then the H lerp.
   for (int e = tid; e < TP * cg; e += kThreads) {
     const int p = e / cg;
     const int c = e - p * cg;
     float v = 0.f;
     if (p < valid) {
-      const T* r0 = g + row[2 * p] * cg + c;
-      const T* r1 = g + row[2 * p + 1] * cg + c;
+      const float* r0 = g + row[2 * p] * cg + c;
+      const float* r1 = g + row[2 * p + 1] * cg + c;
       const int c0 = col[2 * p] * cg;
       const int c1 = col[2 * p + 1] * cg;
       const float wx0 = wts[4 * p + 2], wx1 = wts[4 * p + 3];
-      const float top = round_t<T>(wx0 * to_f(r0[c0]) + wx1 * to_f(r0[c1]));
-      const float bot = round_t<T>(wx0 * to_f(r1[c0]) + wx1 * to_f(r1[c1]));
+      const float top = wx0 * r0[c0] + wx1 * r0[c1];
+      const float bot = wx0 * r1[c0] + wx1 * r1[c1];
       v = wts[4 * p] * top + wts[4 * p + 1] * bot;
     }
-    As[c * TPS + p] = from_f<T>(v);
+    As[c * TPS + p] = v;
   }
-  const T* xt = x + p0 * cx;  // the tile's x is one contiguous run
+  const float* xt = x + p0 * cx;  // the tile's x is one contiguous run
   for (int e = tid; e < TP * cx; e += kThreads) {
     const int p = e / cx;
     const int c = e - p * cx;
-    As[(cg + c) * TPS + p] = p < valid ? xt[e] : from_f<T>(0.f);
+    As[(cg + c) * TPS + p] = p < valid ? xt[e] : 0.f;
   }
-  for (int e = tid; e < (Kp - K) * TPS; e += kThreads) As[K * TPS + e] = from_f<T>(0.f);
+  for (int e = tid; e < (Kp - K) * TPS; e += kThreads) As[K * TPS + e] = 0.f;
 
   // 3. GEMM over K in chunks of IC inter channels; fold relu(.)*wpsi at once.
   float psum[PT];
@@ -248,22 +238,19 @@ gate_kernel(const T* __restrict__ g, const T* __restrict__ x,
         const int i = i0 + (e - kk * IC);
         float v = 0.f;
         if (k < K && i < inter)
-          v = to_f(k < cg ? wg[static_cast<size_t>(k) * inter + i]
-                          : wx[static_cast<size_t>(k - cg) * inter + i]);
+          v = k < cg ? wg[static_cast<size_t>(k) * inter + i]
+                     : wx[static_cast<size_t>(k - cg) * inter + i];
         Bs[e] = v;
       }
       __syncthreads();
 #pragma unroll 8
       for (int kk = 0; kk < kKC; ++kk) {
-        const Vec<T, PT> av =
-            *reinterpret_cast<const Vec<T, PT>*>(As + (k0 + kk) * TPS + ty * PT);
-        const Vec<float, IPT> bv =
-            *reinterpret_cast<const Vec<float, IPT>*>(Bs + kk * IC + tx * IPT);
+        const Vec<PT> av = *reinterpret_cast<const Vec<PT>*>(As + (k0 + kk) * TPS + ty * PT);
+        const Vec<IPT> bv = *reinterpret_cast<const Vec<IPT>*>(Bs + kk * IC + tx * IPT);
 #pragma unroll
         for (int j = 0; j < PT; ++j) {
-          const float a = to_f(av.v[j]);
 #pragma unroll
-          for (int i = 0; i < IPT; ++i) acc[j][i] = fmaf(a, bv.v[i], acc[j][i]);
+          for (int i = 0; i < IPT; ++i) acc[j][i] = fmaf(av.v[j], bv.v[i], acc[j][i]);
         }
       }
     }
@@ -271,10 +258,9 @@ gate_kernel(const T* __restrict__ g, const T* __restrict__ x,
     for (int i = 0; i < IPT; ++i) {
       const int ii = i0 + tx * IPT + i;
       const float bb = ii < inter ? badd[ii] : 0.f;
-      const float wp = ii < inter ? to_f(wpsi[ii]) : 0.f;
+      const float wp = ii < inter ? wpsi[ii] : 0.f;
 #pragma unroll
-      for (int j = 0; j < PT; ++j)
-        psum[j] += round_t<T>(fmaxf(acc[j][i] + bb, 0.f)) * wp;
+      for (int j = 0; j < PT; ++j) psum[j] += fmaxf(acc[j][i] + bb, 0.f) * wp;
     }
   }
 
@@ -285,73 +271,74 @@ gate_kernel(const T* __restrict__ g, const T* __restrict__ x,
     float s = psum[j];
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (tx == 0) att_s[ty * PT + j] = round_t<T>(1.f / (1.f + expf(-(s + bp))));
+    if (tx == 0) att_s[ty * PT + j] = 1.f / (1.f + expf(-(s + bp)));
   }
   __syncthreads();
 
   // 5. out = x * att, written as one contiguous run.
-  T* ot = out + p0 * cx;
+  float* ot = out + p0 * cx;
   for (int e = tid; e < valid * cx; e += kThreads) {
     const int p = e / cx;
     const int c = e - p * cx;
-    ot[e] = from_f<T>(to_f(As[(cg + c) * TPS + p]) * att_s[p]);
+    ot[e] = As[(cg + c) * TPS + p] * att_s[p];
   }
 }
 
-template <typename T, int PT, int IPT>
-cudaError_t launch(const void* g, const void* x, const void* wg, const void* wx,
-                   const void* badd, const void* wpsi, const void* bpsi, void* out,
-                   int n, int h_in, int w_in, int h_out, int w_out, int cg, int cx,
-                   int inter, Band band, float scale_h, float scale_w,
-                   cudaStream_t stream) {
+template <int PT, int IPT>
+cudaError_t launch_f32(const float* g, const float* x, const float* wg, const float* wx,
+                       const float* badd, const float* wpsi, const float* bpsi, float* out,
+                       int n, int h_in, int w_in, int h_out, int w_out, int cg, int cx,
+                       int inter, Band band, float scale_h, float scale_w,
+                       cudaStream_t stream) {
   const int kp = (cg + cx + kKC - 1) / kKC * kKC;
-  const size_t smem = smem_bytes<T, PT, IPT>(kp);
-  auto kernel = gate_kernel<T, PT, IPT>;
+  const size_t smem = smem_bytes<PT, IPT>(kp);
+  auto kernel = gate_f32_kernel<PT, IPT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const long long npix = static_cast<long long>(n) * h_out * w_out;
   const long long blocks = (npix + 16 * PT - 1) / (16 * PT);
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const T*>(g), static_cast<const T*>(x), static_cast<const T*>(wg),
-      static_cast<const T*>(wx), static_cast<const float*>(badd),
-      static_cast<const T*>(wpsi), static_cast<const float*>(bpsi), static_cast<T*>(out),
-      n, h_in, w_in, h_out, w_out, cg, cx, inter, band, scale_h, scale_w);
+      g, x, wg, wx, badd, wpsi, bpsi, out, n, h_in, w_in, h_out, w_out, cg, cx, inter,
+      band, scale_h, scale_w);
   return cudaGetLastError();
 }
 
-// Largest pixel tile whose staged channel vectors fit the budget; the
-// inter-channel chunk follows I (the smallest gate has I = 32).
-template <typename T, int IPT>
-cudaError_t dispatch_pt(const void* g, const void* x, const void* wg, const void* wx,
-                        const void* badd, const void* wpsi, const void* bpsi, void* out,
-                        int n, int h_in, int w_in, int h_out, int w_out, int cg, int cx,
-                        int inter, Band band, float scale_h, float scale_w,
-                        cudaStream_t s) {
+// The largest pixel tile whose staged channel vectors fit the budget (PT = 1 may
+// take twice it: Cg + Cx = 1536 at the transposed AttentionUNet-64's widest gate is
+// 110.6 KB); the inter-channel chunk follows I (the smallest gate has I = 32).
+template <int IPT>
+cudaError_t dispatch_f32_pt(const float* g, const float* x, const float* wg,
+                            const float* wx, const float* badd, const float* wpsi,
+                            const float* bpsi, float* out, int n, int h_in, int w_in,
+                            int h_out, int w_out, int cg, int cx, int inter, Band band,
+                            float scale_h, float scale_w, cudaStream_t s) {
   const int kp = (cg + cx + kKC - 1) / kKC * kKC;
-  if (tile_bytes<T, 4>(kp) <= kMaxTileBytes)
-    return launch<T, 4, IPT>(g, x, wg, wx, badd, wpsi, bpsi, out, n, h_in, w_in,
-                             h_out, w_out, cg, cx, inter, band, scale_h, scale_w, s);
-  if (tile_bytes<T, 2>(kp) <= kMaxTileBytes)
-    return launch<T, 2, IPT>(g, x, wg, wx, badd, wpsi, bpsi, out, n, h_in, w_in,
-                             h_out, w_out, cg, cx, inter, band, scale_h, scale_w, s);
-  if (tile_bytes<T, 1>(kp) <= 2 * kMaxTileBytes)
-    return launch<T, 1, IPT>(g, x, wg, wx, badd, wpsi, bpsi, out, n, h_in, w_in,
-                             h_out, w_out, cg, cx, inter, band, scale_h, scale_w, s);
+  if (tile_bytes<4>(kp) <= kMaxTileBytes)
+    return launch_f32<4, IPT>(g, x, wg, wx, badd, wpsi, bpsi, out, n, h_in, w_in, h_out,
+                              w_out, cg, cx, inter, band, scale_h, scale_w, s);
+  if (tile_bytes<2>(kp) <= kMaxTileBytes)
+    return launch_f32<2, IPT>(g, x, wg, wx, badd, wpsi, bpsi, out, n, h_in, w_in, h_out,
+                              w_out, cg, cx, inter, band, scale_h, scale_w, s);
+  if (tile_bytes<1>(kp) <= 2 * kMaxTileBytes)
+    return launch_f32<1, IPT>(g, x, wg, wx, badd, wpsi, bpsi, out, n, h_in, w_in, h_out,
+                              w_out, cg, cx, inter, band, scale_h, scale_w, s);
   return cudaErrorInvalidValue;  // Cg + Cx too wide for one tile
 }
 
-template <typename T>
-cudaError_t dispatch(const void* g, const void* x, const void* wg, const void* wx,
-                     const void* badd, const void* wpsi, const void* bpsi, void* out,
-                     int n, int h_in, int w_in, int h_out, int w_out, int cg, int cx,
-                     int inter, Band band, float scale_h, float scale_w,
-                     cudaStream_t s) {
+cudaError_t dispatch_f32(const void* g, const void* x, const void* wg, const void* wx,
+                         const void* badd, const void* wpsi, const void* bpsi, void* out,
+                         int n, int h_in, int w_in, int h_out, int w_out, int cg, int cx,
+                         int inter, Band band, float scale_h, float scale_w,
+                         cudaStream_t s) {
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
   if (inter >= 64)
-    return dispatch_pt<T, 4>(g, x, wg, wx, badd, wpsi, bpsi, out, n, h_in, w_in,
-                             h_out, w_out, cg, cx, inter, band, scale_h, scale_w, s);
-  return dispatch_pt<T, 2>(g, x, wg, wx, badd, wpsi, bpsi, out, n, h_in, w_in, h_out,
-                           w_out, cg, cx, inter, band, scale_h, scale_w, s);
+    return dispatch_f32_pt<4>(f(g), f(x), f(wg), f(wx), f(badd), f(wpsi), f(bpsi),
+                              static_cast<float*>(out), n, h_in, w_in, h_out, w_out, cg,
+                              cx, inter, band, scale_h, scale_w, s);
+  return dispatch_f32_pt<2>(f(g), f(x), f(wg), f(wx), f(badd), f(wpsi), f(bpsi),
+                            static_cast<float*>(out), n, h_in, w_in, h_out, w_out, cg, cx,
+                            inter, band, scale_h, scale_w, s);
 }
 
 // ---------------------------------------------------------------- bf16 (wgmma)
@@ -804,8 +791,8 @@ int attention_gate_launch(int dtype, const void* g, const void* x, const void* w
       static_cast<int>(std::floor((y_off + h_out - 1) * scale_h)) + 1, band.g_last);
   if (first < g_off || last >= g_off + h_in) return cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch<float>(g, x, wg, wx, badd, wpsi, bpsi, out, n, h_in, w_in, h_out,
-                           w_out, cg, cx, inter, band, scale_h, scale_w, s);
+    return dispatch_f32(g, x, wg, wx, badd, wpsi, bpsi, out, n, h_in, w_in, h_out, w_out,
+                        cg, cx, inter, band, scale_h, scale_w, s);
   if (dtype == 1)
     return dispatch_bf16(g, x, wg, wx, badd, wpsi, bpsi, out, n, h_in, w_in, h_out, w_out,
                          cg, cx, inter, h_out_full, band, scale_h, scale_w, s);
