@@ -2,7 +2,8 @@
 {plots,profiling}.py) on the CPU: every plot of the JAX package's
 module is drawn from NCHW tensors and numpy arrays alike, with the same
 artifact layout; the profiler writes a Chrome trace only when given a
-directory; the step timer and the NaN guard behave as documented."""
+directory; the NaN guard behaves as documented. The program's spans:
+tests/test_torch_spans.py."""
 
 import json
 
@@ -76,19 +77,6 @@ def test_trace_writes_a_chrome_trace_with_annotations(tmp_path):
     names = {e.get('name') for e in
              json.loads(traces[0].read_text())['traceEvents']}
     assert 'my_region' in names and 'aten::mm' in names
-
-
-def test_step_timer_summary():
-    timer = profiling.StepTimer()
-    assert timer.summary()['steps'] == 0
-    for _ in range(3):
-        timer.start()
-        timer.stop(torch.tensor(1.0))
-    s = timer.summary(items_per_step=4)
-    assert s['steps'] == 3 and s['total_s'] == pytest.approx(sum(timer.steps))
-    assert s['mean_ms'] == pytest.approx(1e3 * s['total_s'] / 3)
-    timer.reset()
-    assert timer.steps == []
 
 
 def test_nan_guard():

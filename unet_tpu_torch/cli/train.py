@@ -21,7 +21,10 @@ Counterpart of ``unet_tpu/cli/train.py``, with its flags and epoch loop:
     the newest run of the experiment in its own directory, or starts
     fresh when there is none;
   * ``--profile-dir DIR`` writes a ``torch.profiler`` Chrome trace of the
-    first epoch's training into DIR;
+    first epoch's training into DIR, holding the program's spans
+    (``utils/profiling.py``: ``train.fetch`` with its ``loader.wait`` and
+    ``h2d.stage``, ``train.augment``, ``train.step`` with its
+    ``step.update``) beside the ops and kernels;
   * at the end, ``training_curves.png`` and ``val_predictions.png``
     (the best weights on up to 8 validation slices with tumor), or one
     line saying the plots were skipped where matplotlib is missing;
@@ -88,8 +91,8 @@ def parse_args(argv=None):
                    help='synthetic dataset: tumor radius range as a '
                         'fraction of img_size (default 0.02,0.05)')
     p.add_argument('--profile-dir', type=str, default=None,
-                   help='write a torch.profiler trace of the first epoch '
-                        'here')
+                   help='write a torch.profiler trace of the first epoch, '
+                        'with the program\'s spans, here')
     p.add_argument('--debug-nans', action='store_true',
                    help='fail on the first non-finite loss (reads each '
                         'super-batch loss back, which syncs)')
@@ -217,7 +220,9 @@ def _train(args, config, device, rank, world):
                                              increment_path, set_seed,
                                              validate_config)
     from unet_tpu_torch.utils import plots
-    from unet_tpu_torch.utils.profiling import nan_guard, trace
+    from unet_tpu_torch.utils.profiling import (TRAIN_AUGMENT, TRAIN_FETCH,
+                                                TRAIN_STEP, annotate,
+                                                nan_guard, trace)
     from unet_tpu_torch.utils.torch_port import load_torch_checkpoint
 
     is_main = rank == 0
@@ -496,22 +501,29 @@ def _train(args, config, device, rank, world):
                     mb_queue.append(mb)
                     yield imgs, msks
 
-            for imgs, msks in prefetch_to_device(device_stream(), device):
+            stream = prefetch_to_device(device_stream(), device)
+            # one fetch per optimizer step: fetching the last super-batch
+            # already finds the loader's end
+            for _ in range(-(-len(train_loader) // accum)):
+                with annotate(TRAIN_FETCH):
+                    imgs, msks = next(stream)
                 mb = mb_queue.pop(0)
                 n_micro += int(mb.sum())
                 a, b = imgs.shape[:2]
-                imgs = imgs.float() / 255.0
-                if augment_enabled:
-                    flat_i, flat_m = augment_batch_seeded(
-                        imgs.reshape(a * b, *imgs.shape[2:]),
-                        msks.reshape(a * b, *msks.shape[2:]), seed + 1,
-                        aug_step, aug_cfg, local_slice=local, groups=a)
-                    aug_step += 1
-                    imgs = flat_i.reshape(imgs.shape)
-                    msks = flat_m.reshape(msks.shape)
-                else:
-                    imgs = normalize_batch(imgs)
-                loss_sum = train_step(imgs, msks, lr, mb, ema)
+                with annotate(TRAIN_AUGMENT, device):
+                    imgs = imgs.float() / 255.0
+                    if augment_enabled:
+                        flat_i, flat_m = augment_batch_seeded(
+                            imgs.reshape(a * b, *imgs.shape[2:]),
+                            msks.reshape(a * b, *msks.shape[2:]), seed + 1,
+                            aug_step, aug_cfg, local_slice=local, groups=a)
+                        aug_step += 1
+                        imgs = flat_i.reshape(imgs.shape)
+                        msks = flat_m.reshape(msks.shape)
+                    else:
+                        imgs = normalize_batch(imgs)
+                with annotate(TRAIN_STEP):
+                    loss_sum = train_step(imgs, msks, lr, mb, ema)
                 guard.check_finite(loss_sum, f'loss at epoch {epoch + 1}, '
                                    f'optimizer step {train_step.steps}')
                 loss_sums.append(loss_sum)

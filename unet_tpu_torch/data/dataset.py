@@ -15,6 +15,9 @@ Counterpart of ``unet_tpu/data/dataset.py``:
   with ``local_slice`` a rank yields only its rows of each global batch;
 * ``prefetch_to_device`` copies the next batches from pinned host memory
   with ``non_blocking`` copies while the current one computes.
+
+The loader's gather and stack (``loader.wait``) and the staging of the
+copies (``h2d.stage``) are spans of ``utils/profiling.py``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from unet_tpu_torch.utils.profiling import H2D_STAGE, LOADER_WAIT, annotate
 
 CLASS_NAMES = ['background', 'tumor']
 
@@ -259,13 +264,15 @@ class BatchLoader:
                 for b in range(min(self.max_in_flight, nb)))
             next_b = len(pending)
             while pending:
-                samples = [f.result() for f in pending.popleft()]
-                if next_b < nb:
-                    pending.append([pool.submit(load, int(i))
-                                    for i in indices(next_b)])
-                    next_b += 1
-                yield (np.stack([s[0] for s in samples])[:, None],
-                       np.stack([s[1] for s in samples]))
+                with annotate(LOADER_WAIT):
+                    samples = [f.result() for f in pending.popleft()]
+                    if next_b < nb:
+                        pending.append([pool.submit(load, int(i))
+                                        for i in indices(next_b)])
+                        next_b += 1
+                    batch = (np.stack([s[0] for s in samples])[:, None],
+                             np.stack([s[1] for s in samples]))
+                yield batch
 
 
 def prefetch_to_device(iterator, device, depth: int = 2):
@@ -278,11 +285,12 @@ def prefetch_to_device(iterator, device, depth: int = 2):
 
     def put(item):
         out = []
-        for a in item:
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if cuda:
-                t = t.pin_memory().to(device, non_blocking=True)
-            out.append(t)
+        with annotate(H2D_STAGE):
+            for a in item:
+                t = torch.from_numpy(np.ascontiguousarray(a))
+                if cuda:
+                    t = t.pin_memory().to(device, non_blocking=True)
+                out.append(t)
         return tuple(out)
 
     buf = collections.deque()

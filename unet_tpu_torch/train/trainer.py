@@ -44,6 +44,7 @@ from unet_tpu_torch.core.distributed import (all_reduce_sum,
                                              is_distributed, process_count)
 from unet_tpu_torch.ops.bitpack import pack_masks_device
 from unet_tpu_torch.train.metrics import confusion_matrix_update
+from unet_tpu_torch.utils.profiling import STEP_UPDATE, annotate
 
 
 def make_predict_step(model) -> Callable:
@@ -231,17 +232,19 @@ class TrainStep:
         device scalar."""
         model, params = self.model, [p for p in self.model.parameters()]
         loss_sum = self.accumulate(images, masks, mb_mask)
-        with torch.no_grad():
-            for p in params:
-                p.grad.div_(self.accum_steps)
-            if self.grad_clip and self.grad_clip > 0:
-                clip_by_global_norm([p.grad for p in params], self.grad_clip)
-        for group in self.opt.param_groups:
-            group['lr'] = lr
-        self.opt.step()
-        self.steps += 1
-        if self.use_ema and ema is not None:
-            ema_update(ema, model, self.ema_decay)
+        with annotate(STEP_UPDATE, images.device):
+            with torch.no_grad():
+                for p in params:
+                    p.grad.div_(self.accum_steps)
+                if self.grad_clip and self.grad_clip > 0:
+                    clip_by_global_norm([p.grad for p in params],
+                                        self.grad_clip)
+            for group in self.opt.param_groups:
+                group['lr'] = lr
+            self.opt.step()
+            self.steps += 1
+            if self.use_ema and ema is not None:
+                ema_update(ema, model, self.ema_decay)
         return loss_sum
 
 
