@@ -5,13 +5,16 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from types import ModuleType
 from typing import Any, Dict, List, Optional
 
 HERE = Path(__file__).resolve().parent
@@ -33,6 +36,25 @@ def load_named(kind: str, name: str, root: Path = HERE) -> Dict[str, Any]:
     if not path.is_file():
         raise FileNotFoundError(f'no {kind[:-1]} named {name!r} ({path})')
     return json.loads(path.read_text())
+
+
+def load_reference(config: Dict[str, Any], root: Path = HERE) -> ModuleType:
+    """The configuration's plain reference, ``<root>/reference/<name>.py``
+    with the name from its top-level ``"reference"`` (``model`` where it
+    has none), loaded by path so a root of a test's own holds its own.
+    ``reference/__init__.py`` lists what the module provides."""
+    name = config.get('reference', 'model')
+    if not re.fullmatch(r'[A-Za-z_][A-Za-z0-9_]*', name):
+        raise ValueError(f'reference {name!r} is not a module name')
+    path = root / 'reference' / f'{name}.py'
+    if not path.is_file():
+        raise FileNotFoundError(f'no reference named {name!r} ({path})')
+    spec = importlib.util.spec_from_file_location(
+        f'bench_h100_reference_{name}', path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def derive_seed(seed: int, label: str) -> int:
@@ -78,6 +100,7 @@ class Context:
     """One run of one cell."""
     workload: str
     config: Dict[str, Any]
+    arch: ModuleType        # the configuration's reference module
     traffic: Dict[str, Any]
     workload_file: Dict[str, Any]
     seed: int
@@ -130,8 +153,9 @@ def make_context(workload: str, seed: int, seconds: float,
     """The context of one run of ``workload`` (files under ``root``), with
     a fresh scratch directory under TMPDIR."""
     cell = load_named('workloads', workload, root)
-    return Context(workload=workload,
-                   config=load_named('configs', cell['config'], root),
+    config = load_named('configs', cell['config'], root)
+    return Context(workload=workload, config=config,
+                   arch=load_reference(config, root),
                    traffic=load_named('traffic', cell['traffic'], root),
                    workload_file=cell, seed=seed, seconds=seconds,
                    trace=trace, chips=cell['chips'], device=device,

@@ -12,12 +12,15 @@ without changing what it computes:
   correctness steps (each step's loss, the first gradient from AdamW's
   first moment, the leaves' change after the third); after ``warmup``
   steps the window opens at a step's entry (synchronised), and at the
-  first step entry past ``--seconds`` it synchronises, closes, records
-  what the close is held to exactly (``Probe.closing``) and ends the
-  loop by raising ``WindowClosed``; with ``--trace 1`` a profile of the
-  device alone covers ``trace_steps`` steps inside the window, and a
-  second one of ``gap_steps`` steps, with the loop thread's host ops,
-  names the idle gaps;
+  first step entry past ``--seconds`` it synchronises and closes;
+  with ``--trace 0`` a profile of the device alone then covers
+  ``trace_steps`` more steps, whose busy time gives the device's time
+  per slice; last it records what the close is held to exactly
+  (``Probe.closing``) and ends the loop by raising ``WindowClosed``;
+  with ``--trace 1`` a profile of the device alone covers
+  ``trace_steps`` steps inside the window, and a second one of
+  ``gap_steps`` steps, with the loop thread's host ops, names the idle
+  gaps;
 * around ``augment_batch_seeded``: the first three super-batches' uint8
   slices and masks, and the (seed, step) the draws come from.
 
@@ -28,7 +31,8 @@ augmentation run as they do on a cached epoch, and the slices' making
 (22 ms a slice on the host) stays out of the window.
 
 The epoch holds far more slices than a window at several times today's
-rate takes, so the window never reaches validation or a checkpoint.
+rate takes, so the window never reaches validation or a checkpoint; a
+run that would reach the epoch's end fails instead.
 After the window the reference follows the three steps from the same
 weights and the benchmark's own copies of the slices.
 """
@@ -86,9 +90,10 @@ class Probe:
     """State of the two wrappers over one run of the loop."""
 
     def __init__(self, ctx: Context, init: Dict[str, torch.Tensor],
-                 window: bool):
+                 window: bool, epoch_steps: int):
         tr = ctx.traffic
         self.ctx, self.init, self.window = ctx, init, window
+        self.epoch_steps = epoch_steps
         self.open_at = max(int(tr['warmup_steps']), CHECK_STEPS)
         self.trace_from = self.open_at + int(tr['trace_after_steps'])
         self.trace_to = self.trace_from + int(tr['trace_steps'])
@@ -105,16 +110,24 @@ class Probe:
         self.closed: Dict[str, float] = {}
         self.tracer = None
         self.traced_steps = 0
-        if ctx.trace and window:
-            from bench_h100.tracing import Window
-            dev = torch.device(ctx.device)
-            # the metrics' window records the device alone: recording the
-            # loop's host ops slows its steps by about a quarter
-            self.window_trace = Window(ctx.tmp / 'train_trace.json', dev,
+        self.device_from = None
+        if not window:
+            return
+        from bench_h100.tracing import Window
+        dev = torch.device(ctx.device)
+        if not ctx.trace:
+            # after the window: the device's own time per step, which the
+            # host's pace does not move
+            self.device_trace = Window(ctx.tmp / 'device_trace.json', dev,
                                        host_ops=False)
-            self.gap_trace = Window(ctx.tmp / 'gap_trace.json', dev)
-            self.window_trace.warm()
-            self.gap_trace.warm()
+            return
+        # the metrics' window records the device alone: recording the
+        # loop's host ops slows its steps by about a quarter
+        self.window_trace = Window(ctx.tmp / 'train_trace.json', dev,
+                                   host_ops=False)
+        self.gap_trace = Window(ctx.tmp / 'gap_trace.json', dev)
+        self.window_trace.warm()
+        self.gap_trace.warm()
 
     def _sync(self):
         if self.ctx.device == 'cuda':
@@ -123,6 +136,15 @@ class Probe:
     def before(self, ts) -> None:
         i = self.step
         if not self.window:
+            return
+        if i >= self.epoch_steps:
+            raise RuntimeError('the epoch ended before the run did: give '
+                               'the traffic more volumes')
+        if self.device_from is not None:
+            if i == self.device_from + self.ctx.traffic['trace_steps']:
+                self.device_trace.stop()
+                self.closing(ts)
+                raise WindowClosed
             return
         if i == self.open_at:
             self._sync()
@@ -135,6 +157,10 @@ class Probe:
             if self.tracer is not None:
                 raise RuntimeError('the window closed inside the traced '
                                    'steps: give the cell more seconds')
+            if not self.ctx.trace:
+                self.device_from = i
+                self.device_trace.start()
+                return
             self.closing(ts)
             raise WindowClosed
         if self.tracer is not None and i in (self.trace_to, self.gaps_to):
@@ -152,7 +178,8 @@ class Probe:
     @torch.no_grad()
     def closing(self, ts) -> None:
         """What the window's close is held to exactly, after the steps
-        the window timed: ``window_counts``, the BatchNorm layers whose
+        the window timed (and those the device's trace followed):
+        ``window_counts``, the BatchNorm layers whose
         update count is not one per microbatch of every step run, and the
         parameters (and the step object) whose count of AdamW steps is not
         the steps run; ``window_nonfinite``, the leaves of the model's
@@ -276,7 +303,7 @@ def drive(ctx: Context, window: bool = True) -> Dict:
     job_seed = derive_seed(ctx.seed, 'job')
     w_seed = derive_seed(ctx.seed, 'weights')
     dev = torch.device(ctx.device)
-    init = seeded_state(ctx.config['model'], w_seed, dev)
+    init = seeded_state(ctx.arch, ctx.config['model'], w_seed, dev)
     ctx.tmp.mkdir(parents=True, exist_ok=True)
     pt = ctx.tmp / 'init.pt'
     torch.save({'model_state_dict': {k: v.cpu() for k, v in init.items()}},
@@ -295,7 +322,8 @@ def drive(ctx: Context, window: bool = True) -> Dict:
         tr['volumes'], tr['slices_per_volume']))
     place = np.empty_like(order)
     place[order] = np.arange(len(order))
-    probe = Probe(ctx, init, window)
+    epoch_steps = len(order) // tr['batch_size'] // tr['accumulation_steps']
+    probe = Probe(ctx, init, window, epoch_steps)
     if ctx.device == 'cuda':
         torch.cuda.reset_peak_memory_stats()
     undo = install(probe, (pool_u8.numpy(), pool_m.numpy(), place))
@@ -354,8 +382,8 @@ def judge(ctx: Context, r: Dict, control: bool = False) -> Dict:
     state = {k: v.to(dev) for k, v in r['init'].items()}
 
     def follow(**fault):
-        return ref.follow(ctx.config['model'], job_of(ctx), state, batches,
-                          r['job_seed'] + 1, dev, **fault)
+        return ref.follow(ctx.arch, ctx.config['model'], job_of(ctx),
+                          state, batches, r['job_seed'] + 1, dev, **fault)
 
     want = follow()
     nums = ref.compare(r, want)
@@ -373,7 +401,6 @@ def judge(ctx: Context, r: Dict, control: bool = False) -> Dict:
 
 
 def run(ctx: Context) -> Outcome:
-    from bench_h100.yardstick import model_flops_per_slice
     r = drive(ctx)
     probe = r['probe']
     tr = ctx.traffic
@@ -387,21 +414,27 @@ def run(ctx: Context) -> Outcome:
     nums = judge(ctx, r)
     log(f'reference: {time.monotonic() - t:.3f} s')
     comp = pick_compared(nums, ctx.limits)
+    end_to_end = {'train_slices_per_s': rate, 'setup_s': setup_s}
+    if probe.device_from is not None:
+        busy = probe.device_trace.summary().busy_s
+        end_to_end['device_ms_per_slice'] = (
+            1e3 * busy / (tr['trace_steps'] * per_step))
+        log(f"device: {busy:.6f} s busy in {tr['trace_steps']} steps after "
+            'the window')
     layer, trace = {}, None
     if probe.traced_steps:
         trace = probe.window_trace.summary()
         if probe.gaps_to > probe.trace_to:
             trace.gaps = probe.gap_trace.summary().gaps
-        flops = model_flops_per_slice(ctx.config['model'],
-                                      ctx.config['img_size'])
+        flops = ctx.arch.flops_per_slice(ctx.config['model'],
+                                         ctx.config['img_size'])
         layer = {'cell': 'train',
                  'slices_traced': probe.traced_steps * per_step,
-                 'flops_per_slice': flops,
+                 'flops_per_slice': flops, 'slices_per_s': rate,
                  'warp_rows': per_step, 'img_size': ctx.config['img_size']}
     kind = (torch.cuda.get_device_name() if ctx.device == 'cuda'
             else 'cpu')
-    return Outcome(end_to_end={'train_slices_per_s': rate,
-                               'setup_s': setup_s},
+    return Outcome(end_to_end=end_to_end,
                    attempted=probe.steps_timed, failed=0, compared=comp,
                    memory_peak_bytes=int(r['peak']), device_kind=kind,
                    device_count=ctx.chips, layer=layer, trace=trace)

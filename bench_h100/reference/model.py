@@ -16,15 +16,23 @@ track). Everything runs in float32.
 to float8 e4m3 (one scale per tensor, from its largest magnitude;
 gradients pass straight through): the control that computes in the
 precision below the configuration's bfloat16.
+
+This is the reference of every configuration that names none
+(``reference/__init__.py`` lists what such a module provides):
+``flops_per_slice`` counts the networks' operations and ``init_plan``
+gives torch's default initialisation of their leaves.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Dict, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from bench_h100.yardstick import conv_flops, gate_shapes, levels
 
 FP8_MAX = 448.0  # largest finite float8 e4m3fn
 
@@ -174,3 +182,56 @@ class Net(nn.Module):
         y = self.up3(y, x2)
         y = self.up4(y, x1)
         return self.outc(y)
+
+
+def flops_per_slice(model: Dict, img: int) -> int:
+    """Forward operations of one img^2 slice through the UNet or
+    AttentionUNet the model section describes: every convolution, the
+    gates' 1x1 convolutions at the resolution of their input (W_g at g's,
+    W_x and psi at x's) and the 1x1 head. BatchNorm, activations,
+    resizes and pools are left out (elementwise, not matrix work)."""
+    f, factor, bilinear = levels(model)
+    n_in, n_cls = int(model['n_channels']), int(model['n_classes'])
+    total = 0
+    enc = [(n_in, f), (f, 2 * f), (2 * f, 4 * f), (4 * f, 8 * f),
+           (8 * f, 16 * f // factor)]
+    for level, (cin, cout) in enumerate(enc):
+        s = img // 2 ** level
+        total += conv_flops(cin, cout, 3, s, s) + conv_flops(cout, cout, 3,
+                                                             s, s)
+    dec = [(16 * f, 8 * f // factor), (8 * f, 4 * f // factor),
+           (4 * f, 2 * f // factor), (2 * f, f)]
+    for level, (in_c, out_c) in enumerate(dec):
+        s = img // 2 ** (3 - level)
+        if bilinear:
+            mid = in_c // 2
+            total += conv_flops(in_c, mid, 3, s, s) + conv_flops(
+                mid, out_c, 3, s, s)
+        else:
+            # 2x2 stride-2 transposed conv from s/2 to s, then DoubleConv
+            total += conv_flops(in_c, in_c // 2, 1, s, s)
+            total += conv_flops(in_c, out_c, 3, s, s) + conv_flops(
+                out_c, out_c, 3, s, s)
+    for cg, hg, cx, inter in gate_shapes(model, img):
+        total += conv_flops(cg, inter, 1, hg, hg)
+        total += conv_flops(cx, inter, 1, 2 * hg, 2 * hg)
+        total += conv_flops(inter, 1, 1, 2 * hg, 2 * hg)
+    total += conv_flops(f, n_cls, 1, img, img)
+    return total
+
+
+def init_plan(shapes: Dict[str, torch.Size]) -> Dict[str, Tuple]:
+    """torch's defaults: every convolution's weight, and the head's bias,
+    U(+-1/sqrt(fan_in)) with the weight's fan_in; BatchNorm weight 1,
+    bias 0, statistics (0, 1), update count 0."""
+    plan = {}
+    for k, s in shapes.items():
+        if k.endswith('.weight') and len(s) == 4:
+            plan[k] = ('uniform', math.prod(s[1:]))
+        elif k == 'outc.conv.bias':
+            plan[k] = ('uniform', math.prod(shapes['outc.conv.weight'][1:]))
+        elif k.endswith(('running_var', '.weight')):
+            plan[k] = ('ones',)
+        else:
+            plan[k] = ('zeros',)
+    return plan

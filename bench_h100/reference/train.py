@@ -15,13 +15,13 @@ from __future__ import annotations
 
 import math
 import statistics
+from types import ModuleType
 from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from bench_h100.reference import augment, strict_fp32
-from bench_h100.reference.model import Net, set_fp8
 
 BETAS = (0.9, 0.999)
 
@@ -62,21 +62,24 @@ def dice_bce(logits: torch.Tensor, target: torch.Tensor, ce_weight: float,
     return ce_weight * ce + dice_weight * (1 - dice)
 
 
-def follow(model_cfg: Dict, job: Dict, state: Dict[str, torch.Tensor],
+def follow(arch: ModuleType, model_cfg: Dict, job: Dict,
+           state: Dict[str, torch.Tensor],
            batches: Sequence[Tuple[torch.Tensor, torch.Tensor]],
            aug_seed: int, device, fp8: bool = False,
            half_batch: bool = False) -> Dict:
     """Run ``len(batches)`` optimizer steps of ``job`` (the config's
     train, loss, scheduler and augmentation sections with the batch
-    layout) from ``state``. Each batch is (uint8 slices (S, H, W), uint8
-    masks (S, H, W)) in the order the super-batch holds them, S =
-    accumulation x microbatch. ``fp8`` computes the convolutions in
-    float8 (the control); ``half_batch`` plants a fault: each microbatch's
-    loss is the mean over its first half of rows alone."""
+    layout) from ``state``, on the network of the configuration's
+    reference module ``arch``. Each batch is (uint8 slices (S, H, W),
+    uint8 masks (S, H, W)) in the order the super-batch holds them, S =
+    accumulation x microbatch. ``fp8`` computes the matrix operations in
+    float8 (the control, ``arch.set_fp8``); ``half_batch`` plants a
+    fault: each microbatch's loss is the mean over its first half of rows
+    alone."""
     strict_fp32()
-    net = Net(model_cfg).to(device)
+    net = arch.Net(model_cfg).to(device)
     net.load_state_dict(state)
-    set_fp8(net, fp8)
+    arch.set_fp8(net, fp8)
     net.train()
     tr, loss_cfg = job['train'], job['loss']
     lr = warmup_cosine_lr(tr['lr'], job['scheduler']['warmup_epochs'],

@@ -258,6 +258,10 @@ def main(argv=None, device: str = 'cuda', look_for_chip: bool = True,
             super().before(ts)
             if self.ctx.trace and i == self.gaps_to:
                 self.recorded = spans.stop()
+            elif not self.ctx.trace and i == self.device_from:
+                # the window's end: the steps after it run under the
+                # device's trace
+                self.recorded = spans.stop()
 
     saved = train.Probe
     train.Probe = Probe

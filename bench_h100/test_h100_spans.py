@@ -128,7 +128,8 @@ def test_cpu_run_prints_the_host_readings(tmp_path, capsys):
     result, got = json.loads(lines[-2]), json.loads(lines[-1])['spans']
     assert result['correct']
     # the accepted metrics that have something to read on the CPU
-    assert set(result['metrics']) == {'mfu.train', 'idle_share.train'}
+    assert set(result['metrics']) == {'mfu.train', 'idle_share.train',
+                                      'loop_slices_per_s'}
     five = {'loader_wait.train', 'idle_in_fetch.train', 'host_step.train',
             'augment_share.train', 'update_share.train'}
     assert five & set(got) == {'loader_wait.train', 'host_step.train'}

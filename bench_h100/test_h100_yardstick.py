@@ -1,13 +1,17 @@
 """The yardstick's arithmetic, slices and trace reduction against hand
 counts."""
 
+import dataclasses
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from bench_h100 import slices, tracing, yardstick
+from bench_h100.common import load_named, load_reference
+from bench_h100.reference import model
 
 ATTN = {'type': 'attention_unet', 'n_channels': 1, 'n_classes': 2,
         'bilinear': True, 'base_features': 64, 'deep_supervision': False}
@@ -58,10 +62,18 @@ def test_model_flops_by_hand():
     head = conv(64, 2, 1, 512)
     gates = sum(conv(c, i, 1, h) + conv(c, i, 1, 2 * h) + conv(i, 1, 1, 2 * h)
                 for c, h, _, i in yardstick.gate_shapes(ATTN, 512))
-    assert yardstick.model_flops_per_slice(UNET, 512) == enc + dec + head
-    assert yardstick.model_flops_per_slice(ATTN, 512) == enc + dec + head + gates
+    assert model.flops_per_slice(UNET, 512) == enc + dec + head
+    assert model.flops_per_slice(ATTN, 512) == enc + dec + head + gates
     # the 3x3 convs alone: about 319 GFLOP a slice
     assert (enc + dec) / G == pytest.approx(319.2033, abs=1e-4)
+
+
+@pytest.mark.parametrize('config, flops', [('attention_unet64', 324670586880),
+                                           ('unet64', 319270420480)])
+def test_flops_per_slice_of_each_config(config, flops):
+    cfg = load_named('configs', config)
+    ref = load_reference(cfg)
+    assert ref.flops_per_slice(cfg['model'], cfg['img_size']) == flops
 
 
 def test_ct_slices_seeded():
@@ -127,3 +139,32 @@ def test_trace_without_host_ops_takes_the_session_span(tmp_path):
         {'ph': 'X', 'cat': 'kernel', 'name': 'k', 'ts': 100, 'dur': 100}])
     assert s.window_s == pytest.approx(400e-6)
     assert s.busy_s == pytest.approx(100e-6)
+
+
+def test_device_readers_divide_by_busy_time(tmp_path):
+    """``mfu.device`` and ``batch_norm.device_share`` divide by the time
+    the card was busy, the window's own readers by the window; with no
+    busy time (the CPU) they read nothing."""
+    from bench_h100.run import read_layer_metric
+    from bench_h100.yardstick import PEAK_BF16_FLOPS
+    root = Path(__file__).resolve().parent
+    s = _trace(tmp_path, [
+        {'ph': 'X', 'cat': 'Trace', 'name': 'PyTorch Profiler (0)',
+         'ts': 0, 'dur': 1000},
+        {'ph': 'X', 'cat': 'kernel', 'name': 'void batch_norm_apply<8>(X)',
+         'ts': 100, 'dur': 100},
+        {'ph': 'X', 'cat': 'kernel', 'name': 'sm90_xmma_fprop',
+         'ts': 300, 'dur': 300}])
+    layer = {'cell': 'train', 'slices_traced': 2, 'flops_per_slice': 1e9,
+             'slices_per_s': 123.5}
+    mfu = read_layer_metric(root, 'mfu.device', layer, s)
+    assert mfu == pytest.approx(100 * 6e9 / 400e-6 / PEAK_BF16_FLOPS)
+    assert read_layer_metric(root, 'mfu.train', layer, s) == pytest.approx(
+        mfu * 0.4)
+    assert read_layer_metric(root, 'batch_norm.device_share', layer,
+                             s) == pytest.approx(25.0)
+    assert read_layer_metric(root, 'loop_slices_per_s', layer, s) == 123.5
+    idle = dataclasses.replace(s, busy_s=0.0)
+    assert read_layer_metric(root, 'mfu.device', layer, idle) is None
+    assert read_layer_metric(root, 'batch_norm.device_share', layer,
+                             idle) is None

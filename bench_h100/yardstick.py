@@ -1,10 +1,11 @@
 """The yardstick's arithmetic: the H100's published peaks, the least time
 of the port's hand-written kernels (operations and bytes from their
-shapes) and the model's operations per slice.
+shapes) and the shapes that a network's count of operations per slice
+(its reference module's ``flops_per_slice``) is made of.
 
 Frozen here, apart from the program: ``gate_bound`` and ``warp_bound``
-are copies of ``chip_smoke.py``'s, parametrised by the batch; the model
-count follows the architecture's equations, not the port's code.
+are copies of ``chip_smoke.py``'s, parametrised by the batch; the counts
+follow the architecture's equations, not the port's code.
 """
 
 from __future__ import annotations
@@ -47,7 +48,10 @@ def conv_flops(cin: int, cout: int, k: int, h: int, w: int) -> int:
     return 2 * cin * cout * k * k * h * w
 
 
-def _levels(model: Dict) -> Tuple[int, int, bool]:
+def levels(model: Dict) -> Tuple[int, int, bool]:
+    """A U-Net's base width, the divisor of its deepest widths (2 with a
+    bilinear decoder, 1 with a transposed one) and whether it is
+    bilinear."""
     return (int(model['base_features']), 2 if model['bilinear'] else 1,
             bool(model['bilinear']))
 
@@ -58,46 +62,10 @@ def gate_shapes(model: Dict, img: int) -> List[Tuple[int, int, int, int]]:
     plain UNet has none."""
     if model['type'] != 'attention_unet':
         return []
-    f, factor, bilinear = _levels(model)
+    f, factor, bilinear = levels(model)
     out = []
     for level, in_c in enumerate((16 * f, 8 * f, 4 * f, 2 * f)):
         skip = in_c // 2
         gate = skip if bilinear else in_c
         out.append((gate, img // 2 ** (4 - level), skip, skip // 2))
     return out
-
-
-def model_flops_per_slice(model: Dict, img: int) -> int:
-    """Forward operations of one img^2 slice through the UNet or
-    AttentionUNet the model section describes: every convolution, the
-    gates' 1x1 convolutions at the resolution of their input (W_g at g's,
-    W_x and psi at x's) and the 1x1 head. BatchNorm, activations,
-    resizes and pools are left out (elementwise, not matrix work)."""
-    f, factor, bilinear = _levels(model)
-    n_in, n_cls = int(model['n_channels']), int(model['n_classes'])
-    total = 0
-    enc = [(n_in, f), (f, 2 * f), (2 * f, 4 * f), (4 * f, 8 * f),
-           (8 * f, 16 * f // factor)]
-    for level, (cin, cout) in enumerate(enc):
-        s = img // 2 ** level
-        total += conv_flops(cin, cout, 3, s, s) + conv_flops(cout, cout, 3,
-                                                             s, s)
-    dec = [(16 * f, 8 * f // factor), (8 * f, 4 * f // factor),
-           (4 * f, 2 * f // factor), (2 * f, f)]
-    for level, (in_c, out_c) in enumerate(dec):
-        s = img // 2 ** (3 - level)
-        if bilinear:
-            mid = in_c // 2
-            total += conv_flops(in_c, mid, 3, s, s) + conv_flops(
-                mid, out_c, 3, s, s)
-        else:
-            # 2x2 stride-2 transposed conv from s/2 to s, then DoubleConv
-            total += conv_flops(in_c, in_c // 2, 1, s, s)
-            total += conv_flops(in_c, out_c, 3, s, s) + conv_flops(
-                out_c, out_c, 3, s, s)
-    for cg, hg, cx, inter in gate_shapes(model, img):
-        total += conv_flops(cg, inter, 1, hg, hg)
-        total += conv_flops(cx, inter, 1, 2 * hg, 2 * hg)
-        total += conv_flops(inter, 1, 1, 2 * hg, 2 * hg)
-    total += conv_flops(f, n_cls, 1, img, img)
-    return total
