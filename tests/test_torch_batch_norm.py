@@ -365,11 +365,35 @@ def _within_bf16(got, want, msg, room=0.0):
 def test_kernels_match_plain_at_every_model_shape(card, dtype):
     """Every BatchNorm shape of AttentionUNet-64 and UNet-64 at b4 512^2:
     the kernels against the plain passes on the same card tensors."""
-    dt = getattr(torch, dtype)
     shapes = sorted(set(_model_shapes('attention_unet')
                         + _model_shapes('unet')))
     assert any(s[0] == 1 for s in shapes) and any(s[0] == 512
                                                   for s in shapes)
+    _hold_kernels_at(shapes, dtype)
+
+
+# TransUNet's decoder at b4 512^2: conv_more at 32^2, then two
+# conv-BatchNorm-ReLU a block at 64^2 ... 512^2
+TRANSUNET_DECODER = [(512, 32, 32, True), (256, 64, 64, True),
+                     (128, 128, 128, True), (64, 256, 256, True),
+                     (16, 512, 512, True)]
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize('dtype', ['bfloat16', 'float32'])
+def test_kernels_match_plain_at_transunet_decoder_shapes(card, dtype):
+    """The same check at every BatchNorm shape of TransUNet R50-ViT-B/16's
+    decoder at b4 512^2 (C = 512 down to 16), read from the model."""
+    shapes = _model_shapes('transunet_r50_vit_b16')
+    assert sorted(set(shapes)) == sorted(TRANSUNET_DECODER)
+    assert len(shapes) == 9
+    _hold_kernels_at(TRANSUNET_DECODER, dtype)
+
+
+def _hold_kernels_at(shapes, dtype):
+    """The kernels against the plain passes, forward and backward, at each
+    (C, H, W, relu) of ``shapes`` with batch 4, on the same card tensors."""
+    dt = getattr(torch, dtype)
     for i, (c, h, w, relu) in enumerate(shapes):
         case = _case(c, seed=i, n=4, h=h, w=w, dtype=dt, device='cuda')
         got = _fused(case, relu, plain=False)

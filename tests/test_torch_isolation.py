@@ -55,3 +55,21 @@ def test_source_has_no_jax_import(path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.append(node.module)
     assert [n for n in names if _forbidden(n)] == []
+
+
+def test_transunet_reference_is_one_plain_file_in_two_places():
+    """The port's CPU tests and the benchmark hold TransUNet to one plain
+    reference: the same bytes in both places, importing neither JAX, the
+    JAX package nor the port."""
+    tests_copy = REPO / 'tests' / 'plain_transunet.py'
+    bench_copy = REPO / 'bench_h100' / 'reference' / 'transunet_r50_vit_b16.py'
+    assert tests_copy.read_bytes() == bench_copy.read_bytes()
+    tree = ast.parse(tests_copy.read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split('.')[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module.split('.')[0])
+    assert names <= {'__future__', 'math', 'collections', 'typing', 'torch'}
+    assert not [n for n in names if _forbidden(n) or n == 'unet_tpu_torch']

@@ -35,7 +35,9 @@ devices: a ``--batch-size`` that divides by the GPU count is split into
 one block of rows per GPU, each on an eval replica of the model
 (``core/mesh.py::ReplicaSet``), and ``--spatial-shard`` instead splits
 each image's height into one band per GPU (``core/spatial.py``, exact
-against the unsharded forward); otherwise one GPU runs.
+against the unsharded forward; a TransUNet, whose attention spans the
+whole image, is refused); otherwise one GPU runs. A TransUNet runs at
+the image size it was trained at.
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ import numpy as np
 import torch
 
 from unet_tpu_torch import resolve_device
-from unet_tpu_torch.models import create_model
+from unet_tpu_torch.models import TransUNet, create_model_from_config
 from unet_tpu_torch.utils.torch_port import load_torch_checkpoint
 
 _DTYPES = {'bfloat16': torch.bfloat16, 'float32': torch.float32}
@@ -89,22 +91,12 @@ def load_model(weights, dtype=None, device=None):
         path = path / 'model.pt'
     dev = resolve_device(device)
     state, cfg, epoch = load_torch_checkpoint(path)
-    mcfg = cfg.get('model', {})
     tcfg = cfg.get('tpu', {})
-    mtype = mcfg.get('type', 'unet').lower()
-    if mtype == 'attention':
-        mtype = 'attention_unet'
     if dtype is None:
         dtype = _DTYPES[tcfg.get('compute_dtype', 'bfloat16')]
-    model = create_model(
-        mtype,
-        n_channels=mcfg.get('n_channels', 1),
-        n_classes=mcfg.get('n_classes', 2),
-        bilinear=mcfg.get('bilinear', True),
-        base_features=mcfg.get('base_features', 64),
-        deep_supervision=mcfg.get('deep_supervision', False),
-        dtype=dtype,
-        use_fused_gate=bool(tcfg.get('fused_attention_gate', False)))
+    model = create_model_from_config(
+        {'img_size': cfg.get('data', {}).get('img_size', 512),
+         **cfg.get('model', {})}, dtype, tcfg)
     model.load_state_dict(state, strict=True)
     model = model.to(dev, memory_format=torch.channels_last).eval()
     if dir_meta is not None:
@@ -284,6 +276,15 @@ def _predict_replicas(args, devices):
     model, meta = load_model(args.weights, device=devices[0])
     print(f"Loaded model from {args.weights} "
           f"(epoch {meta.get('epoch', '?')})")
+    if isinstance(model, TransUNet):
+        if args.spatial_shard:
+            raise ValueError('--spatial-shard cannot run a TransUNet: its '
+                             'attention is global over the token grid, so '
+                             'the image cannot be split into height bands')
+        if args.img_size != model.img_size:
+            raise ValueError(f'this TransUNet was built for {model.img_size}'
+                             f'^2 (its position embeddings): pass '
+                             f'--img-size {model.img_size}')
     if len(devices) > 1 and args.spatial_shard:
         from unet_tpu_torch.core.spatial import SpatialShardedModel
         model = SpatialShardedModel(model, devices)

@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Train UNet / Attention U-Net for lung-tumor segmentation on one GPU.
+"""Train UNet / Attention U-Net / TransUNet for lung-tumor segmentation
+on one GPU.
 
 Counterpart of ``unet_tpu/cli/train.py``, with its flags and epoch loop:
 
@@ -217,8 +218,8 @@ def _train(args, config, device, rank, world):
     from unet_tpu_torch.data.dataset import (BatchLoader, SliceDataset,
                                              SyntheticSliceDataset,
                                              prefetch_to_device)
-    from unet_tpu_torch.models import create_model
-    from unet_tpu_torch.ops import batch_norm, warp
+    from unet_tpu_torch.models import create_model_from_config
+    from unet_tpu_torch.ops import attention, batch_norm, warp
     from unet_tpu_torch.train.callbacks import (CheckpointManager,
                                                 EarlyStopping)
     from unet_tpu_torch.train.losses import create_loss_function
@@ -241,6 +242,7 @@ def _train(args, config, device, rank, world):
     is_main = rank == 0
     warp_before = warp.launch_count
     bn_before = batch_norm.launch_count
+    attn_before = attention.call_count
     log = print if is_main else (lambda *a, **k: None)
     validate_config(config)
     seed = config.get('seed', 42)
@@ -337,16 +339,9 @@ def _train(args, config, device, rank, world):
     dtype = (torch.bfloat16 if tpu_cfg.get('compute_dtype', 'bfloat16')
              == 'bfloat16' else torch.float32)
     deep_supervision = model_cfg.get('deep_supervision', False)
-    mtype = model_cfg.get('type', 'unet').lower()
-    if mtype == 'attention':
-        mtype = 'attention_unet'
-    model = create_model(mtype, n_channels=model_cfg['n_channels'],
-                         n_classes=model_cfg['n_classes'],
-                         bilinear=model_cfg.get('bilinear', True),
-                         base_features=model_cfg.get('base_features', 64),
-                         deep_supervision=deep_supervision, dtype=dtype,
-                         use_fused_gate=tpu_cfg.get('fused_attention_gate'),
-                         generator=torch.Generator().manual_seed(seed))
+    model = create_model_from_config(
+        {'img_size': img_size, **model_cfg}, dtype, tpu_cfg,
+        generator=torch.Generator().manual_seed(seed))
     if args.init_weights:
         log(f'Initializing weights from {args.init_weights}')
         state, _, _ = load_torch_checkpoint(args.init_weights)
@@ -619,9 +614,12 @@ def _train(args, config, device, rank, world):
     # the train-mode BatchNorm kernels' launches (0 on the CPU)
     bn_launches = gather_objects(batch_norm.launch_count - bn_before)
     log(f'BatchNorm kernel launches per rank: {json.dumps(bn_launches)}')
+    # the fused attention's calls, forward (TransUNet; 0 for the U-Nets)
+    attn_calls = gather_objects(attention.call_count - attn_before)
+    log(f'Attention calls per rank: {json.dumps(attn_calls)}')
     result = {**history, 'save_dir': str(save_dir),
               'train_seconds': train_seconds, 'warp_launches': warp_launches,
-              'bn_launches': bn_launches}
+              'bn_launches': bn_launches, 'attention_calls': attn_calls}
     if not is_main:
         return result
     (save_dir / 'history.json').write_text(

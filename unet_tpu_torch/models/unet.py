@@ -15,14 +15,12 @@ memory; parameters stay float32.
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 import torch.nn as nn
 
-from unet_tpu_torch.models.layers import (AttentionUp, Conv2d,
-                                          ConvTranspose2d, DoubleConv, Down,
+from unet_tpu_torch.models.layers import (AttentionUp, DoubleConv, Down,
                                           OutConv, Up)
 from unet_tpu_torch.ops.resize import resize_bilinear_align_corners
 
@@ -124,46 +122,3 @@ class AttentionUNet(_ParamCount, nn.Module):
         up = lambda t: resize_bilinear_align_corners(t.float(), h, w)
         return (logits, up(self.ds_out1(d2)), up(self.ds_out2(d3)),
                 up(self.ds_out3(d4)))
-
-
-MODEL_REGISTRY = {
-    'unet': UNet,
-    'attention_unet': AttentionUNet,
-}
-
-
-def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
-    """Re-draw every conv parameter from ``generator`` with torch's
-    default init, U(+-1/sqrt(fan_in)) for weights and biases (fan_in of a
-    transposed conv counts its output channels, as torch does)."""
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, (Conv2d, ConvTranspose2d)):
-                w = m.weight
-                bound = 1.0 / math.sqrt(w.shape[1] * w.shape[2] * w.shape[3])
-                w.uniform_(-bound, bound, generator=generator)
-                if m.bias is not None:
-                    m.bias.uniform_(-bound, bound, generator=generator)
-
-
-def create_model(model_type: str = 'attention_unet', *, n_channels: int = 1,
-                 n_classes: int = 2, bilinear: bool = True,
-                 base_features: int = 64, deep_supervision: bool = False,
-                 dtype: torch.dtype = torch.float32,
-                 use_fused_gate: Optional[bool] = None,
-                 generator: Optional[torch.Generator] = None) -> nn.Module:
-    """Model factory. Parameters are float32 on the CPU; with a
-    ``generator`` they are drawn from it, else from torch's global RNG."""
-    model_type = model_type.lower()
-    if model_type not in MODEL_REGISTRY:
-        raise ValueError(f'Unknown model type: {model_type}. '
-                         f'Options: {sorted(MODEL_REGISTRY)}')
-    kwargs = dict(n_channels=n_channels, n_classes=n_classes,
-                  bilinear=bilinear, base_features=base_features, dtype=dtype)
-    if model_type == 'attention_unet':
-        kwargs['deep_supervision'] = deep_supervision
-        kwargs['use_fused_gate'] = use_fused_gate
-    model = MODEL_REGISTRY[model_type](**kwargs)
-    if generator is not None:
-        init_parameters(model, generator)
-    return model

@@ -61,12 +61,15 @@ def describe_devices(device: torch.device) -> str:
 _VALID_SCHEDULERS = ('cosine_annealing', 'warmup_cosine',
                      'reduce_on_plateau')
 _VALID_LOSSES = ('dice', 'ce', 'crossentropy', 'balanced_ce', 'dice_bce')
-_VALID_MODELS = ('unet', 'attention_unet', 'attention')
+_VALID_MODELS = ('unet', 'attention_unet', 'attention',
+                 'transunet_r50_vit_b16')
 
 
 def validate_config(cfg: Dict) -> Dict:
     """Light schema validation: model, loss and scheduler types, and an
-    image size the four pooling levels can take."""
+    image size the four pooling levels can take; for TransUNet a side
+    divisible by 16 (its token grid), ``model.img_size`` where given
+    equal to it, and no deep supervision."""
     model = cfg.get('model', {})
     mtype = model.get('type', 'unet').lower()
     if mtype not in _VALID_MODELS:
@@ -85,6 +88,16 @@ def validate_config(cfg: Dict) -> Dict:
         raise ValueError(
             f'data.img_size must be >= 16 (4 pooling levels), '
             f'got {img_size}')
+    if mtype == 'transunet_r50_vit_b16':
+        if img_size % 16:
+            raise ValueError('data.img_size must be a multiple of 16 for '
+                             f'{mtype} (its 16-pixel token grid), got '
+                             f'{img_size}')
+        if model.get('img_size', img_size) != img_size:
+            raise ValueError(f"model.img_size {model['img_size']} differs "
+                             f'from data.img_size {img_size}')
+        if model.get('deep_supervision'):
+            raise ValueError(f'{mtype} has no deep supervision heads')
     return cfg
 
 

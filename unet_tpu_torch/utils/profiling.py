@@ -50,6 +50,10 @@ H2D_STAGE = 'h2d.stage'          # prefetch_to_device: pinned, copies queued
 TRAIN_AUGMENT = 'train.augment'  # the super-batch augmented or normalised
 TRAIN_STEP = 'train.step'        # the optimizer step dispatched
 STEP_UPDATE = 'step.update'      # TrainStep after the grads: clip, AdamW, EMA
+# TransUNet's forward (models/transunet.py), inside a microbatch's step
+MODEL_CNN = 'model.cnn'                  # ResNet root, stages, embedding
+MODEL_TRANSFORMER = 'model.transformer'  # the blocks and encoder_norm
+MODEL_DECODER = 'model.decoder'          # DecoderCup and the head
 
 SPAN_CATEGORY = 'program_span'   # the spans' ``cat`` in a Chrome trace
 
