@@ -76,6 +76,11 @@ Phases (any failure raises and exits non-zero, printing no result):
    the run (one per super-batch); every loss finite, the weights moved,
    and the saved ``weights/last/model.pt`` serves a 512^2 slice through
    ``cli/predict.load_model``; then the same run with augmentation off;
+   then the train CLI on the same config with TransUNet R50-ViT-B/16 at
+   its published widths as the model (512^2, b4 x accumulation 8, one
+   epoch of 20 volumes: 2 steps and 4 validation batches), the GroupNorm
+   kernels' launches counted from 0 just before it (52 calls x 6 x 8
+   microbatches a step, 52 x 3 a validation batch, as the CLI reports);
 11. ``--resume`` of that run to a third epoch with ``--profile-dir``
    (epoch 3, one warp launch per super-batch, the trace names the warp
    kernel, plots drawn or skipped with one line); then
@@ -119,7 +124,9 @@ Phases (any failure raises and exits non-zero, printing no result):
    launches counted, output and dx within a bf16 step of the plain
    passes, ms beside the bytes bound (10 B a value), the plain passes'
    ms and F.batch_norm + ReLU's (the library yardstick, which the port
-   never calls).
+   never calls); the same for the GroupNorm (+ReLU) kernels at one
+   TransUNet R50-ViT-B/16 microbatch's 52 calls, against F.group_norm
+   with its layout copy back to channels_last.
 
 The train CLI phases that count launches in this process run on a copy
 of the config with ``tpu.data_parallel: 1``: the config's -1 would spawn
@@ -131,9 +138,11 @@ measured or computed by this run, and the last line is
 ``{"ok": true, "device": {...}}``. Exits 2 when no CUDA device is
 available. Imports nothing of JAX or of the JAX package.
 
-Five measurement modes run instead of the smoke:
+Six measurement modes run instead of the smoke:
 ``python3 chip_smoke.py --batch-norm`` builds the BatchNorm kernels and
-runs their row of phase 15 alone;
+runs their row of phase 15 alone; ``python3 chip_smoke.py --group-norm``
+the GroupNorm kernels' (TransUNet's 52 calls a b4 512^2 microbatch) and
+the TransUNet train CLI run of phase 10;
 ``python3 chip_smoke.py --inference-ab PARENT_DIR PAIRS`` runs the serve
 and predict phases of another checkout (``git archive`` of a parent
 commit, unpacked) and of this one alternately on the same host, one
@@ -3131,6 +3140,261 @@ def batch_norm_only():
     return 0
 
 
+# ----------------------------------------------------------- group norm
+
+def gn_calls():
+    """(C, H, W, groups, eps, relu) of each GroupNorm call of one TransUNet
+    R50-ViT-B/16 microbatch (BN_BATCH x IMG^2) at the published widths, in
+    call order, read on the ``meta`` device."""
+    import torch
+    from unet_tpu_torch.models import TRANSUNET, create_model_from_config
+    from unet_tpu_torch.models.transunet import GroupNorm
+    with torch.device('meta'):
+        model = create_model_from_config(
+            {'type': TRANSUNET, 'n_channels': 1, 'n_classes': 2,
+             'img_size': IMG}, torch.bfloat16)
+        x = torch.empty(BN_BATCH, 3, IMG, IMG, dtype=torch.bfloat16)
+    calls = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, inp: calls.append((*inp[0].shape[1:], mod.num_groups,
+                                       mod.eps, mod.relu)))
+        for m in model.modules() if isinstance(m, GroupNorm)]
+    with torch.no_grad():
+        model.transformer.embeddings.hybrid_model(
+            x.contiguous(memory_format=torch.channels_last))
+    for h in hooks:
+        h.remove()
+    return calls
+
+
+# the TransUNet train phase: 20 synthetic volumes of 4 slices (16 train, 4
+# validation), one epoch
+TU_VOLUMES, TU_SLICES = 20, 4
+
+
+def transunet_train_path(card, tmp):
+    """The TransUNet training path: the port's train CLI on the flagship
+    config with its model section replaced by TransUNet R50-ViT-B/16 at
+    the published widths (512^2, bf16, b4 x accum 8, augmentation on, one
+    rank), one epoch of TU_VOLUMES synthetic volumes, then validation.
+    GroupNorm launches counted from 0 just before the run: every call's 6
+    in each train microbatch and its forward's 3 (stats, finalize, apply)
+    in each validation batch, as the CLI reports them, plus one forward's
+    where the CLI plotted validation predictions after it reported.
+    Returns (launches, optimizer steps)."""
+    import yaml
+    from unet_tpu_torch.data.dataset import SyntheticSliceDataset
+    from unet_tpu_torch.models import TRANSUNET
+    from unet_tpu_torch.ops import group_norm
+
+    cfg = _train_cfg()
+    cfg['model'] = {'type': TRANSUNET, 'n_channels': cfg['model']['n_channels'],
+                    'n_classes': cfg['model']['n_classes']}
+    cfg['tpu']['data_parallel'] = 1
+    path = f'{tmp}/transunet.yaml'
+    with open(path, 'w') as f:
+        yaml.safe_dump(cfg, f)
+    data, accum = cfg['data'], cfg['train']['accumulation_steps']
+    split = dict(num_volumes=TU_VOLUMES, slices_per_volume=TU_SLICES,
+                 img_size=data['img_size'], val_ratio=data['val_ratio'],
+                 seed=cfg['seed'])
+    n_train, n_val = (len(SyntheticSliceDataset(split=k, **split))
+                      for k in ('train', 'val'))
+    steps = -(-(n_train // data['batch_size']) // accum)
+    val_batches = -(-n_val // data['batch_size'])
+    calls = len(gn_calls())
+    per_step = calls * group_norm.LAUNCHES_PER_CALL * accum
+    want = per_step * steps + calls * 3 * val_batches
+    argv = ['--config', path, '--project', tmp, '--name', 'transunet',
+            '--synthetic', '--synthetic-volumes', str(TU_VOLUMES),
+            '--synthetic-slices', str(TU_SLICES), '--epochs', '1']
+    if DEVICE == 'cpu':
+        argv += ['--device', 'cpu']
+        want = 0
+    from unet_tpu_torch.cli import train as train_cli
+    group_norm.launch_count = 0
+    t0 = time.perf_counter()
+    hist = train_cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = group_norm.launch_count
+    plotted = os.path.exists(f'{hist["save_dir"]}/val_predictions.png')
+    log(f'train transunet: {TRANSUNET} (published widths, bf16, '
+        f'b{data["batch_size"]} x accum {accum}, {n_train} train / {n_val} '
+        f'validation slices, one epoch) ran in {wall:.1f} s with {launches} '
+        f'GroupNorm kernel launches ({calls} calls x '
+        f'{group_norm.LAUNCHES_PER_CALL} x {accum} microbatches x {steps} '
+        f'steps + {calls} x 3 x {val_batches} validation batches'
+        + (f' + {calls} x 3 for the prediction plot' if plotted else '')
+        + f'); train loss {hist["train_loss"]}, val loss '
+        f'{hist["val_loss"]}  [{card}]')
+    assert hist['gn_launches'] == [want], (hist['gn_launches'], want)
+    if DEVICE == 'cuda':
+        assert launches == want + calls * 3 * plotted, (launches, want)
+    assert all(np.isfinite(hist['train_loss'] + hist['val_loss']))
+    return want, steps
+
+
+def time_group_norm(card):
+    """The GroupNorm (+ReLU) kernels at one TransUNet microbatch's 52
+    calls, forward and backward: launches counted, output and dx held
+    against the plain passes (one bf16 step), then device ms of the
+    kernels, the plain passes and F.group_norm (+ReLU) on the
+    channels_last maps with the layout copy back (the library yardstick:
+    the route the port took before the kernels) beside the bytes bound:
+    10 B a bf16 value (x read and y written forward; dy and x read and dx
+    written backward), and the two-pass design's 16 B."""
+    import torch
+    import torch.nn.functional as F
+    from bench_h100.tracing import function_name
+    from unet_tpu_torch.ops import group_norm as gn
+    cl = torch.channels_last
+    calls = gn_calls()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    args = []
+    for c, h, w, groups, eps, relu in calls:
+        def rnd(*shape):
+            return torch.randn(*shape, device=DEVICE, generator=gen)
+        args.append(dict(
+            x=(3 * rnd(BN_BATCH, c, h, w) + 1).to(torch.bfloat16)
+            .contiguous(memory_format=cl).requires_grad_(),
+            dy=rnd(BN_BATCH, c, h, w).to(torch.bfloat16).contiguous(
+                memory_format=cl),
+            w=(rnd(c).abs() + 0.5).to(torch.bfloat16).requires_grad_(),
+            b=rnd(c).to(torch.bfloat16).requires_grad_(), groups=groups,
+            eps=eps, relu=relu))
+
+    def through(plain):
+        """The calls through the program's ``group_norm`` (the kernels),
+        or through the Function on the plain passes."""
+        def fn():
+            res = []
+            for a in args:
+                if plain:
+                    y = gn.GroupNormFn.apply(
+                        a['x'], a['w'], a['b'], a['groups'], a['eps'],
+                        a['relu'], gn.PlainPasses)
+                else:
+                    y = gn.group_norm(a['x'], a['groups'], a['w'], a['b'],
+                                      a['eps'], a['relu'])
+                res.append((y, *torch.autograd.grad(
+                    y, (a['x'], a['w'], a['b']), a['dy'])))
+            return res
+        return fn
+
+    def library():
+        for a in args:
+            y = F.group_norm(a['x'], a['groups'], a['w'], a['b'],
+                             a['eps']).contiguous(memory_format=cl)
+            if a['relu']:
+                y = torch.relu(y)
+            torch.autograd.grad(y, (a['x'], a['w'], a['b']), a['dy'])
+
+    gn.launch_count = 0
+    got = through(False)()
+    launches = gn.launch_count
+    assert launches == len(calls) * gn.LAUNCHES_PER_CALL, (launches,
+                                                            len(calls))
+    want = through(True)()
+    err = 0.0
+    for (c, h, w, groups, eps, relu), a_, g, p in zip(calls, args, got,
+                                                       want):
+        # where the pre-activation lies within 1e-4 of 0 the ReLU's mask
+        # may flip between the two (the statistics differ by the sums'
+        # order), and dx with it: those elements are not held
+        held = torch.ones_like(a_['x'], dtype=torch.bool)
+        if relu:
+            x = a_['x'].detach().double()
+            xg = x.reshape(BN_BATCH, groups, -1)
+            mean = xg.mean(2).repeat_interleave(c // groups, 1)
+            rstd = torch.rsqrt(xg.var(2, unbiased=False) + eps
+                               ).repeat_interleave(c // groups, 1)
+            pre = ((x - mean[:, :, None, None]) * rstd[:, :, None, None]
+                   * a_['w'].detach().double().view(1, -1, 1, 1)
+                   + a_['b'].detach().double().view(1, -1, 1, 1))
+            held = pre.abs() >= 1e-4
+            del x, xg, pre
+        for i, name in ((0, 'y'), (1, 'dx')):
+            a = g[i].detach().float()[held]
+            b = p[i].detach().float()[held]
+            bound = b.abs() * 2.0 ** -7 + 1e-3 * b.abs().max()
+            assert bool(((a - b).abs() <= bound).all()), (c, h, w, groups,
+                                                           name)
+            err = max(err, float((a - b).abs().max()))
+    del got, want
+    kernels = through(False)
+    k1, kw, top = device_busy(kernels, top=8)
+    p1, pw, _ = device_busy(through(True))
+    l1, lw, ltop = device_busy(library, top=6)
+    k2, _, _ = device_busy(kernels)
+    ev = time_ms(kernels, 5)
+    ms = (k1 + k2) / 2
+    values = sum(BN_BATCH * c * h * w for c, h, w, *_ in calls)
+    bound = 10 * values / HBM_BYTES_PER_S * 1e3
+    two_pass = 16 * values / HBM_BYTES_PER_S * 1e3
+    log(f'TIME group_norm transunet_r50_vit_b16 ({len(calls)} calls of one '
+        f'{BN_BATCH}x{IMG}^2 microbatch, forward+backward, '
+        f'{values / 1e6:.2f} M values; device ms, wall ms in brackets): '
+        f'kernels {k1:.4f} / {k2:.4f} ({kw:.2f}; CUDA events {ev:.2f}), '
+        f'plain {p1:.4f} ({pw:.2f}), F.group_norm+copy+ReLU {l1:.4f} '
+        f'({lw:.2f}), bound {bound:.4f} (bytes, 10 B a value; the two '
+        f'passes\' 16 B {two_pass:.4f}), roofline share {bound / ms:.1%}, '
+        f'{launches} launches  [{card}]')
+    for name, kms, count in top:
+        log(f'  {kms:.4f} ms x{count} {name[:110]}')
+    log('  library route:')
+    for name, kms, count in ltop:
+        log(f'  {kms:.4f} ms x{count} {name[:110]}')
+    # each distinct shape alone: us a call of each kernel, beside the
+    # call's bytes bound
+    firsts = {}
+    for call, a in zip(calls, args):
+        firsts.setdefault(call, a)
+    for (c, h, w, groups, eps, relu), a in sorted(firsts.items()):
+        def one(a=a):
+            for _ in range(3):
+                y = gn.group_norm(a['x'], a['groups'], a['w'], a['b'],
+                                  a['eps'], a['relu'])
+                torch.autograd.grad(y, (a['x'], a['w'], a['b']), a['dy'])
+        total, _, top = device_busy(one, top=6)
+        us = {function_name(name): 1e3 * kms / 3 for name, kms, _ in top}
+        log(f'  shape C{c} {h}x{w} G{groups} relu={int(relu)} x'
+            f'{calls.count((c, h, w, groups, eps, relu))}: '
+            f'{1e3 * total / 3:.1f} us a call, bound '
+            f'{10 * BN_BATCH * c * h * w / HBM_BYTES_PER_S * 1e6:.1f} us; '
+            + ', '.join(f'{k[len("group_norm_"):]} {v:.1f}'
+                        for k, v in us.items()))
+    del args
+    torch.cuda.empty_cache()
+    return {'ms': ms, 'plain_ms': p1, 'library_ms': l1, 'bound_ms': bound,
+            'bound_by': 'bytes', 'two_pass_bytes_ms': two_pass,
+            'wall_ms': kw, 'event_ms': ev, 'library_wall_ms': lw,
+            'microbatch_launches': launches, 'calls': len(calls),
+            'values': values, 'max_abs_err': err}
+
+
+def group_norm_only():
+    """``--group-norm``: build the GroupNorm kernels and run their row
+    alone."""
+    import torch
+    from unet_tpu_torch.ops import _build
+    if not torch.cuda.is_available():
+        log('no CUDA device')
+        return 2
+    card = card_line()
+    log(f'card: {card}')
+    _build.build('group_norm')
+    for line in (_build.BUILD / 'group_norm.log').read_text().splitlines():
+        if 'registers' in line or 'spill' in line or 'error' in line:
+            log(f'  ptxas group_norm: {line.strip()}')
+    tg = time_group_norm(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, steps = transunet_train_path(card, tmp)
+    log(card)
+    log(json.dumps({'group_norm': dict(tg, launches=launches,
+                                       train_steps=steps)}))
+    return 0
+
+
 def time_train_parts(card):
     """The augmentation program per super-batch, and one optimizer step
     (8 microbatches of 4 forward and backward, clip, AdamW) in bf16."""
@@ -3632,6 +3896,9 @@ def main():
         warp_launches, bn_launches, run_dir = timed(
             'train', train_main_path, card, tmp)
         torch.cuda.empty_cache()
+        gn_launches, gn_steps = timed('train_transunet',
+                                      transunet_train_path, card, tmp)
+        torch.cuda.empty_cache()
         timed('resume', resume_path, card, tmp, run_dir)
         timed('export', export_path, card, run_dir)
         torch.cuda.empty_cache()
@@ -3646,6 +3913,7 @@ def main():
     t = timed('time_gates', time_gates, card, errs)
     tw = timed('time_warp', time_warp, card, warp_err)
     tb = timed('time_batch_norm', time_batch_norm, card)
+    tg = timed('time_group_norm', time_group_norm, card)
     timed('time_launch_host', time_launch_host, card)
     timed('time_train_parts', time_train_parts, card)
 
@@ -3704,6 +3972,20 @@ def main():
         'unet': tb['unet'],
         # the train CLI's run above (AttentionUNet-64, the main path)
         'launches': bn_launches,
+    }, {
+        'name': 'group_norm',
+        'route': 'cuda',
+        'source': 'unet_tpu_torch/csrc/group_norm.cu',
+        # no TPU kernel: the JAX package has no GroupNorm
+        'replaces': None,
+        # one TransUNet microbatch's 52 GroupNorm calls, forward+backward;
+        # library_ms is F.group_norm with its layout copy (+ReLU), the
+        # route the port no longer calls
+        **tg,
+        # the train CLI's TransUNet run above (its train steps and its
+        # validation)
+        'launches': gn_launches,
+        'train_steps': gn_steps,
     }]
     log('phase seconds (host clock): ' + json.dumps(PHASE_SECONDS))
     log(f'(kernel times: the four 512^2 gates of one bf16 forward at batch '
@@ -3727,6 +4009,8 @@ if __name__ == '__main__':
         sys.exit(memory_ceiling())
     if sys.argv[1:2] == ['--batch-norm']:
         sys.exit(batch_norm_only())
+    if sys.argv[1:2] == ['--group-norm']:
+        sys.exit(group_norm_only())
     if sys.argv[1:2] == ['--gate-ab']:
         sys.exit(gate_ab(sys.argv[2]))
     if sys.argv[1:2] == ['--quality']:

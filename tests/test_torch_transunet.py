@@ -369,6 +369,7 @@ def test_train_cli_trains_and_counts_attention(run):
     # forward of one batch
     assert result['attention_calls'] == [2 * (STEPS * ACCUM + 1)]
     assert result['bn_launches'] == [0]   # the CPU takes no kernel
+    assert result['gn_launches'] == [0]
 
 
 def test_model_spans_nest_under_the_step(run):

@@ -219,7 +219,7 @@ def _train(args, config, device, rank, world):
                                              SyntheticSliceDataset,
                                              prefetch_to_device)
     from unet_tpu_torch.models import create_model_from_config
-    from unet_tpu_torch.ops import attention, batch_norm, warp
+    from unet_tpu_torch.ops import attention, batch_norm, group_norm, warp
     from unet_tpu_torch.train.callbacks import (CheckpointManager,
                                                 EarlyStopping)
     from unet_tpu_torch.train.losses import create_loss_function
@@ -242,6 +242,7 @@ def _train(args, config, device, rank, world):
     is_main = rank == 0
     warp_before = warp.launch_count
     bn_before = batch_norm.launch_count
+    gn_before = group_norm.launch_count
     attn_before = attention.call_count
     log = print if is_main else (lambda *a, **k: None)
     validate_config(config)
@@ -614,12 +615,16 @@ def _train(args, config, device, rank, world):
     # the train-mode BatchNorm kernels' launches (0 on the CPU)
     bn_launches = gather_objects(batch_norm.launch_count - bn_before)
     log(f'BatchNorm kernel launches per rank: {json.dumps(bn_launches)}')
+    # the GroupNorm kernels' launches (TransUNet on CUDA; 0 elsewhere)
+    gn_launches = gather_objects(group_norm.launch_count - gn_before)
+    log(f'GroupNorm kernel launches per rank: {json.dumps(gn_launches)}')
     # the fused attention's calls, forward (TransUNet; 0 for the U-Nets)
     attn_calls = gather_objects(attention.call_count - attn_before)
     log(f'Attention calls per rank: {json.dumps(attn_calls)}')
     result = {**history, 'save_dir': str(save_dir),
               'train_seconds': train_seconds, 'warp_launches': warp_launches,
-              'bn_launches': bn_launches, 'attention_calls': attn_calls}
+              'bn_launches': bn_launches, 'gn_launches': gn_launches,
+              'attention_calls': attn_calls}
     if not is_main:
         return result
     (save_dir / 'history.json').write_text(

@@ -42,7 +42,11 @@ cast at each call, 4-D tensors in channels_last. The decoder's
 conv-BatchNorm-ReLU is ``layers.Conv2d`` + ``TorchBatchNorm(relu=True)``
 (the hand-written kernels on CUDA in training) and its upsampling
 ``upsample2x_align_corners``; attention runs ``ops.attention.attention``.
-GroupNorm, LayerNorm and the weight standardisation are ATen's.
+GroupNorm on a CUDA tensor runs the hand-written channels_last kernels
+of ``ops.group_norm`` (training and eval), with the ReLU that follows the
+root's and each bottleneck's first two GroupNorms fused into them (the
+root's ``relu`` is an ``nn.Identity``); a CPU tensor keeps
+``F.group_norm``. LayerNorm and the weight standardisation are ATen's.
 State-dict names are the published module's, so its checkpoint loads
 with a strict ``load_state_dict``.
 
@@ -83,6 +87,7 @@ from unet_tpu_torch.models import layers
 from unet_tpu_torch.models.layers import TorchBatchNorm
 from unet_tpu_torch.models.unet import _ParamCount
 from unet_tpu_torch.ops.attention import attention
+from unet_tpu_torch.ops.group_norm import group_norm
 from unet_tpu_torch.ops.resize import upsample2x_align_corners
 from unet_tpu_torch.utils.profiling import (MODEL_CNN, MODEL_DECODER,
                                             MODEL_TRANSFORMER, annotate)
@@ -279,13 +284,25 @@ class StdConv2d(nn.Conv2d):
 
 
 class GroupNorm(nn.GroupNorm):
-    """``nn.GroupNorm`` in the input's dtype, its output in channels_last
-    (ATen's CUDA kernel computes on and returns the contiguous layout)."""
+    """``nn.GroupNorm`` in the input's dtype, then a ReLU if ``relu``; its
+    output in channels_last. A CUDA tensor takes the hand-written kernels
+    (``ops.group_norm.group_norm``, on channels_last itself), a CPU tensor
+    ``F.group_norm``."""
+
+    def __init__(self, num_groups: int, num_channels: int,
+                 eps: float = 1e-5, relu: bool = False):
+        super().__init__(num_groups, num_channels, eps=eps)
+        self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(x, self.num_groups, _cast(self.weight, x.dtype),
-                         _cast(self.bias, x.dtype), self.eps)
-        return y.contiguous(memory_format=_CL)
+        weight = _cast(self.weight, x.dtype)
+        bias = _cast(self.bias, x.dtype)
+        if x.is_cuda:
+            return group_norm(x, self.num_groups, weight, bias, self.eps,
+                              self.relu)
+        y = F.group_norm(x, self.num_groups, weight, bias, self.eps)
+        y = y.contiguous(memory_format=_CL)
+        return torch.relu(y) if self.relu else y
 
 
 class LayerNorm(nn.LayerNorm):
@@ -350,9 +367,9 @@ def set_dropout_generator(model: nn.Module,
 class PreActBottleneck(nn.Module):
     def __init__(self, cin: int, cout: int, cmid: int, stride: int = 1):
         super().__init__()
-        self.gn1 = GroupNorm(32, cmid, eps=1e-6)
+        self.gn1 = GroupNorm(32, cmid, eps=1e-6, relu=True)
         self.conv1 = StdConv2d(cin, cmid, 1, bias=False)
-        self.gn2 = GroupNorm(32, cmid, eps=1e-6)
+        self.gn2 = GroupNorm(32, cmid, eps=1e-6, relu=True)
         self.conv2 = StdConv2d(cmid, cmid, 3, stride, 1, bias=False)
         self.gn3 = GroupNorm(32, cout, eps=1e-6)
         self.conv3 = StdConv2d(cmid, cout, 1, bias=False)
@@ -365,8 +382,7 @@ class PreActBottleneck(nn.Module):
         residual = x
         if self.downsample is not None:
             residual = self.gn_proj(self.downsample(x))
-        y = torch.relu(self.gn1(self.conv1(x)))
-        y = torch.relu(self.gn2(self.conv2(y)))
+        y = self.gn2(self.conv2(self.gn1(self.conv1(x))))
         return torch.relu(residual + self.gn3(self.conv3(y)))
 
 
@@ -397,8 +413,8 @@ class ResNetV2(nn.Module):
         w = width
         self.root = nn.Sequential(OrderedDict([
             ('conv', StdConv2d(3, w, 7, 2, 3, bias=False)),
-            ('gn', GroupNorm(32, w, eps=1e-6)),
-            ('relu', nn.ReLU())]))
+            ('gn', GroupNorm(32, w, eps=1e-6, relu=True)),
+            ('relu', nn.Identity())]))   # the ReLU is the norm's
         self.body = nn.Sequential(OrderedDict([
             ('block1', _stage(w, 4 * w, w, units[0], 1)),
             ('block2', _stage(4 * w, 8 * w, 2 * w, units[1], 2)),
