@@ -174,10 +174,12 @@ import time
 
 import numpy as np
 
-# the H100 SXM's published peaks (NVIDIA data sheet, dense)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {'bfloat16': 989e12,   # tensor cores
-              'float32': 67e12}     # FMA outside the tensor cores
+from bench_h100 import yardstick
+
+# the H100 SXM's published peaks (NVIDIA data sheet, dense): the
+# benchmark's yardstick's, and float32's FMA rate outside the tensor cores
+HBM_BYTES_PER_S = yardstick.HBM_BYTES_PER_S
+PEAK_FLOPS = {'bfloat16': yardstick.PEAK_BF16_FLOPS, 'float32': 67e12}
 
 DEVICE = 'cuda'
 BATCH = 8
@@ -386,14 +388,12 @@ def gate_inputs(cg, h, cx, inter, dtype, seed, n=None, w=None):
 
 
 def gate_bound(cg, h, cx, inter, dtype):
-    """Least time for one gate at BATCH: each input read once and the
-    output written once, or its flops at the type's peak."""
+    """Least ms of one gate at BATCH: the yardstick's bytes and operations
+    (``yardstick.gate_bound``), the operations at the type's peak."""
     import torch
-    e = torch.tensor([], dtype=dtype).element_size()
-    pix_out = BATCH * (2 * h) ** 2
-    nbytes = (BATCH * h * h * cg + 2 * pix_out * cx
-              + (cg + cx + 1) * inter) * e + 4 * (inter + 1)
-    flops = 2 * (cg + cx + 1) * inter * pix_out
+    _, nbytes, flops = yardstick.gate_bound(
+        BATCH, cg, h, cx, inter,
+        itemsize=torch.tensor([], dtype=dtype).element_size())
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[str(dtype).split('.')[-1]] * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
@@ -488,14 +488,6 @@ def check_gate_bands():
 
 
 # ---------------------------------------------------------------- warp
-
-def warp_bound(n, h, w):
-    """Least time for one warp: rows and cols in (8 B/px), the image in
-    and out (4 B each), the uint8 mask in and out (1 B each); ~20 flops
-    per pixel are nothing against the card's rate."""
-    nbytes = n * h * w * (8 + 4 + 4 + 1 + 1)
-    return nbytes / HBM_BYTES_PER_S * 1e3, 'bytes', nbytes
-
 
 def warp_cases(seed=0):
     """The warp's inputs at the training shape (SUPER x IMG^2): images,
@@ -650,17 +642,17 @@ def hold_fused_route(model, x, label):
     logits by (dtype name, fused) and leaves the model in bfloat16 with
     the fused gate on."""
     import torch
-    from unet_tpu_torch.ops import attention_gate as ag
+    from unet_tpu_torch.ops._build import launches as counted
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split('.')[-1]
         model.dtype = dtype
         with torch.no_grad():
             set_fused(model, True)
-            ag.launch_count = 0
+            counted['attention_gate'] = 0
             out[name, True] = model(x)
             sync()
-            launches = ag.launch_count
+            launches = counted['attention_gate']
             set_fused(model, False)
             out[name, False] = model(x)
         assert launches == 4, f'{launches} gate kernel launches per forward'
@@ -824,6 +816,7 @@ def check_convs(model, x, card):
     import torch
     import torch.nn.functional as F
     from unet_tpu_torch.ops import conv3x3 as cv
+    from unet_tpu_torch.ops._build import launches as counted
     cl = torch.channels_last
     found = capture_convs(model, x)
     convs = [c for c in found if c[1].in_channels >= 64]
@@ -857,15 +850,15 @@ def check_convs(model, x, card):
 
     # the counted run: one forward of each conv at BATCH, then the data
     # gradient of each at CONV_BATCH_BWD
-    cv.launch_count = 0
+    counted['conv3x3'] = 0
     with torch.no_grad():
         outs = [cv.conv3x3(inp, k) for (_, _, _, inp), k in zip(convs, ks)]
     sync()
-    fwd_launches = cv.launch_count
+    fwd_launches = counted['conv3x3']
     for xb, kb, y, up in bwd:
         y.backward(up)
     sync()
-    launches = cv.launch_count
+    launches = counted['conv3x3']
     log(f'conv3x3: {fwd_launches} kernel launches for the {N_CONVS} '
         f'forwards (b{BATCH}), {launches - fwd_launches} for their data '
         f'gradients (b{CONV_BATCH_BWD})')
@@ -1030,10 +1023,10 @@ def serve_main_path(model, card):
     from unet_tpu_torch.cli.predict import preprocess_image
     from unet_tpu_torch.cli.serve import create_server
     from unet_tpu_torch.data.cache import _native_lib
-    from unet_tpu_torch.ops import attention_gate as ag
     from unet_tpu_torch.ops.bitpack import unpack_masks_host
     from unet_tpu_torch.train.trainer import (make_predict_step_u8,
                                               make_serve_masks_step)
+    from unet_tpu_torch.ops._build import launches as counted
 
     cfg = _model_cfg('attention_unet', True)
     rng = np.random.default_rng(3)
@@ -1110,7 +1103,7 @@ def serve_main_path(model, card):
 
         threads = [threading.Thread(target=client, args=(c,))
                    for c in range(CLIENTS)]
-        ag.launch_count = 0
+        counted['attention_gate'] = 0
         t0 = time.perf_counter()
         for t in threads:
             t.start()
@@ -1119,7 +1112,7 @@ def serve_main_path(model, card):
             assert not t.is_alive(), 'client hung'
         wall = time.perf_counter() - t0
         assert not failures, failures[:3]
-        launches = ag.launch_count
+        launches = counted['attention_gate']
 
         n = CLIENTS * REQUESTS_PER_CLIENT
         metrics = json.loads(_request(addr, 'GET', '/metrics')[2])
@@ -1168,10 +1161,10 @@ def predict_path(model, card):
     import torch
     from PIL import Image
     from unet_tpu_torch.cli import predict as predict_cli
-    from unet_tpu_torch.ops import attention_gate as ag
     from unet_tpu_torch.ops.bitpack import unpack_masks_host
     from unet_tpu_torch.train.trainer import (make_predict_masks_step,
                                               make_predict_step_u8)
+    from unet_tpu_torch.ops._build import launches as counted
 
     cfg = _model_cfg('attention_unet', True)
     rng = np.random.default_rng(13)
@@ -1195,9 +1188,9 @@ def predict_path(model, card):
                 '--save-overlay']
         if DEVICE == 'cpu':
             argv += ['--device', 'cpu']
-        ag.launch_count = 0
+        counted['attention_gate'] = 0
         summary = predict_cli.main(argv)
-        launches = ag.launch_count
+        launches = counted['attention_gate']
         chunks = summary['chunks']
         log(f'predict: {summary["processed"]}/{summary["files"]} images in '
             f'{chunks} chunks, skipped {summary["skipped"]}, {launches} gate '
@@ -1327,14 +1320,14 @@ class _GateTally:
 
     def __init__(self, key=_by_stream):
         from unet_tpu_torch.models import layers
-        from unet_tpu_torch.ops import attention_gate as ag
+        from unet_tpu_torch.ops._build import launches as counted
         self.counts = {}
         self._layers, self._orig = layers, layers.attention_gate_fused
 
         def counting(g, x, *args):
-            before = ag.launch_count
+            before = counted['attention_gate']
             out = self._orig(g, x, *args)
-            if ag.launch_count > before or DEVICE == 'cpu':
+            if counted['attention_gate'] > before or DEVICE == 'cpu':
                 k = key(x, args[5] if len(args) > 5 else None)
                 self.counts[k] = self.counts.get(k, 0) + 1
             return out
@@ -1587,7 +1580,7 @@ def spatial_path(model, card):
     predict CLI."""
     import torch
     from unet_tpu_torch.core.spatial import SpatialShardedModel
-    from unet_tpu_torch.ops import attention_gate as ag
+    from unet_tpu_torch.ops._build import launches as counted
 
     dev0 = _device0()
     lists = {f'{SPATIAL_BANDS} bands of one device':
@@ -1604,12 +1597,12 @@ def spatial_path(model, card):
         tally = _GateTally(_by_band)
         try:
             with torch.inference_mode():
-                ag.launch_count = 0
+                counted['attention_gate'] = 0
                 out = m(x[:nb])
                 sync()
         finally:
             tally.close()
-        return out, ag.launch_count, tally.counts
+        return out, counted['attention_gate'], tally.counts
 
     try:
         for name, devices in lists.items():
@@ -1762,7 +1755,7 @@ def transposed_path(card):
     from unet_tpu_torch.cli import predict as predict_cli
     from unet_tpu_torch.models import create_model
     from unet_tpu_torch.models.layers import ConvTranspose2d
-    from unet_tpu_torch.ops import attention_gate as ag
+    from unet_tpu_torch.ops._build import launches as counted
     model = create_model('attention_unet', base_features=BASE, bilinear=False,
                          dtype=torch.bfloat16, use_fused_gate=True,
                          generator=torch.Generator().manual_seed(4))
@@ -1798,10 +1791,10 @@ def transposed_path(card):
         assert not loaded.bilinear and all(
             g.use_fused for g in gates_of(loaded))
         with torch.no_grad():
-            ag.launch_count = 0
+            counted['attention_gate'] = 0
             same = torch.equal(loaded(x), model(x))
             sync()
-        assert ag.launch_count == 8, ag.launch_count
+        assert counted['attention_gate'] == 8, counted['attention_gate']
         src, dst = f'{tmp}/slices', f'{tmp}/predictions'
         os.makedirs(src)
         for i in range(TRANSPOSED_IMAGES):
@@ -1812,9 +1805,9 @@ def transposed_path(card):
                 '--threshold', '0.5']
         if DEVICE == 'cpu':
             argv += ['--device', 'cpu']
-        ag.launch_count = 0
+        counted['attention_gate'] = 0
         summary = predict_cli.main(argv)
-        launches = ag.launch_count
+        launches = counted['attention_gate']
         written = len(os.listdir(dst))
     log(f'transposed: load_model read the .pt (logits equal the model\'s: '
         f'{same}); predict CLI: {summary["processed"]} images in '
@@ -1836,7 +1829,7 @@ def spatial_transposed(model, card):
     forward's."""
     import torch
     from unet_tpu_torch.core.spatial import SpatialShardedModel
-    from unet_tpu_torch.ops import attention_gate as ag
+    from unet_tpu_torch.ops._build import launches as counted
     dev0 = _device0()
     x = _batch(31, 1).to(dev0)
     sharded = SpatialShardedModel(model, [dev0] * SPATIAL_BANDS)
@@ -1844,9 +1837,9 @@ def spatial_transposed(model, card):
     tally = _GateTally(_by_band)
     try:
         with torch.inference_mode():
-            ag.launch_count = 0
+            counted['attention_gate'] = 0
             ref = model(x)
-            whole = ag.launch_count
+            whole = counted['attention_gate']
             got = sharded(x)
             sync()
     finally:
@@ -1893,15 +1886,14 @@ def plain_unet_path(card):
     gate: no kernel launches here, which is counted too."""
     import torch
     from unet_tpu_torch.models import create_model
-    from unet_tpu_torch.ops import attention_gate as ag
-    from unet_tpu_torch.ops import conv3x3 as cv
+    from unet_tpu_torch.ops._build import launches as counted
     x = _batch(37, BATCH)
     for bilinear in (True, False):
         model = create_model('unet', base_features=BASE, bilinear=bilinear,
                              generator=torch.Generator().manual_seed(8))
         model = model.to(DEVICE, memory_format=torch.channels_last).eval()
         calibrate(model, x[:2], seed=9)
-        launches = ag.launch_count, cv.launch_count
+        launches = counted['attention_gate'], counted['conv3x3']
         out = {}
         with torch.no_grad():
             for dtype in (torch.float32, torch.bfloat16):
@@ -1909,7 +1901,7 @@ def plain_unet_path(card):
                 out[dtype] = model(x)
             out['nchw'] = _nchw_logits(model, x)
             sync()
-        assert (ag.launch_count, cv.launch_count) == launches
+        assert (counted['attention_gate'], counted['conv3x3']) == launches
         ref = out[torch.float32]
         for y in out.values():
             assert y.shape == (BATCH, 2, IMG, IMG) and torch.isfinite(y).all()
@@ -1998,9 +1990,10 @@ def train_main_path(card, tmp):
     import yaml
     from unet_tpu_torch.cli.predict import load_model
     from unet_tpu_torch.models.layers import TorchBatchNorm
-    from unet_tpu_torch.ops import batch_norm, warp
+    from unet_tpu_torch.ops import batch_norm
     from unet_tpu_torch.train.trainer import make_predict_step_u8
     from unet_tpu_torch.utils.config import load_config
+    from unet_tpu_torch.ops._build import launches as counted
 
     config = one_rank_config(tmp)
     init = save_init(tmp)
@@ -2012,11 +2005,11 @@ def train_main_path(card, tmp):
     accum = load_config(config)['train']['accumulation_steps']
     want_bn = (layers * accum * TRAIN_SUPERBATCHES
                * batch_norm.LAUNCHES_PER_CALL if DEVICE == 'cuda' else 0)
-    warp.launch_count = batch_norm.launch_count = 0
+    counted['warp'] = counted['batch_norm'] = 0
     t0 = time.perf_counter()
     hist = run_train_cli(tmp, 'aug_on', config, init_pt)
     wall = time.perf_counter() - t0
-    launches, bn_launches = warp.launch_count, batch_norm.launch_count
+    launches, bn_launches = counted['warp'], counted['batch_norm']
     log(f'train: {TRAIN_CONFIG} (bf16, b4 x accum {accum}, augmentation '
         f'on) ran in {wall:.1f} s with {launches} warp kernel launches for '
         f'{TRAIN_SUPERBATCHES} super-batches and {bn_launches} BatchNorm '
@@ -2024,9 +2017,10 @@ def train_main_path(card, tmp):
         f'{TRAIN_SUPERBATCHES} steps x {batch_norm.LAUNCHES_PER_CALL}); '
         f'train loss {hist["train_loss"]}, val loss {hist["val_loss"]}')
     assert launches == TRAIN_SUPERBATCHES, launches
-    assert hist['warp_launches'] == [launches], hist['warp_launches']
+    counts = hist['kernel_launches']
+    assert counts['warp'] == [launches], counts
     assert bn_launches == want_bn, (bn_launches, want_bn)
-    assert hist['bn_launches'] == [bn_launches], hist['bn_launches']
+    assert counts['batch_norm'] == [bn_launches], counts
     assert all(np.isfinite(hist['train_loss'] + hist['val_loss']))
     last = f'{hist["save_dir"]}/weights/last/model.pt'
     moved, weights = _moved(init, hist['save_dir'])
@@ -2070,19 +2064,19 @@ def resume_path(card, tmp, run_dir):
     kernel, and the plots are drawn (or skipped with one line where
     matplotlib is missing)."""
     from unet_tpu_torch.cli import train as train_cli
-    from unet_tpu_torch.ops import warp
     from unet_tpu_torch.utils.plots import SKIP_MESSAGE, have_matplotlib
+    from unet_tpu_torch.ops._build import launches as counted
     prof = f'{tmp}/profile'
     argv = ['--config', one_rank_config(tmp), '--project', tmp, '--name',
             'aug_on_resumed', '--resume', f'{run_dir}/weights/last',
             '--profile-dir', prof, *TRAIN_ARGS[:-2], '--epochs', '3']
     if DEVICE == 'cpu':
         argv += ['--device', 'cpu']
-    warp.launch_count = 0
+    counted['warp'] = 0
     t0 = time.perf_counter()
     hist = train_cli.main(argv)
     wall = time.perf_counter() - t0
-    launches = warp.launch_count
+    launches = counted['warp']
     meta = json.loads(open(f'{hist["save_dir"]}/weights/last/meta.json')
                       .read())
     traces = glob.glob(f'{prof}/trace_*.json')
@@ -2188,8 +2182,7 @@ def _train_variant(tmp, name, config_path, *extra):
     import torch
     from unet_tpu_torch.cli import train as train_cli
     from unet_tpu_torch.models.unet import AttentionUNet
-    from unet_tpu_torch.ops import attention_gate as ag
-    from unet_tpu_torch.ops import warp
+    from unet_tpu_torch.ops._build import launches as counted
     argv = ['--config', config_path, '--project', tmp, '--name', name,
             *VARIANT_ARGS, *extra]
     if DEVICE == 'cpu':
@@ -2197,12 +2190,12 @@ def _train_variant(tmp, name, config_path, *extra):
     forward = AttentionUNet.forward
     evals = [0]
 
-    def counted(self, x):
+    def counting_evals(self, x):
         evals[0] += not self.training
         return forward(self, x)
 
-    warp.launch_count = ag.launch_count = 0
-    AttentionUNet.forward = counted
+    counted['warp'] = counted['attention_gate'] = 0
+    AttentionUNet.forward = counting_evals
     tee = _Tee(sys.stdout)
     if DEVICE == 'cuda':
         torch.cuda.reset_peak_memory_stats()
@@ -2213,8 +2206,8 @@ def _train_variant(tmp, name, config_path, *extra):
         AttentionUNet.forward = forward
     peak = (torch.cuda.max_memory_allocated() / 2 ** 30 if DEVICE == 'cuda'
             else None)
-    return (hist, tee.kept.getvalue(), warp.launch_count, ag.launch_count,
-            evals[0], peak)
+    return (hist, tee.kept.getvalue(), counted['warp'],
+            counted['attention_gate'], evals[0], peak)
 
 
 def _serve_best(run_dir, want_gates):
@@ -2223,17 +2216,17 @@ def _serve_best(run_dir, want_gates):
     model and the tumor pixels."""
     import torch
     from unet_tpu_torch.cli.predict import load_model
-    from unet_tpu_torch.ops import attention_gate as ag
     from unet_tpu_torch.train.trainer import make_predict_step_u8
+    from unet_tpu_torch.ops._build import launches as counted
     model, meta = load_model(f'{run_dir}/weights/best', device=DEVICE)
     u8 = torch.from_numpy(np.array(_image(np.random.default_rng(41), IMG,
                                           IMG)[None, None])).to(DEVICE)
-    ag.launch_count = 0
+    counted['attention_gate'] = 0
     prob = make_predict_step_u8(model)(u8)
     sync()
     assert prob.shape == (1, 2, IMG, IMG) and torch.isfinite(prob).all()
     if DEVICE == 'cuda':
-        assert ag.launch_count == want_gates, ag.launch_count
+        assert counted['attention_gate'] == want_gates, counted
     return model, meta, int((prob[0, 1] > 0.5).sum())
 
 
@@ -2312,7 +2305,8 @@ def variants_train_path(card, tmp):
             f'tumor px  [{card}]')
         assert all(np.isfinite(hist['train_loss'] + hist['val_loss']))
         assert moved > 0.9 * weights, (moved, weights)
-        assert warps == VARIANT_EPOCHS and hist['warp_launches'] == [warps]
+        assert (warps == VARIANT_EPOCHS
+                and hist['kernel_launches']['warp'] == [warps])
         assert np.allclose(hist['lr'], want_lr, rtol=1e-12), hist['lr']
         assert (type(model).__name__ == {'unet': 'UNet', 'attention_unet':
                                          'AttentionUNet'}[m['type']]
@@ -2376,7 +2370,7 @@ def variants_train_path(card, tmp):
         assert meta1['epoch'] == epochs - 1 and len(hist['train_loss']) == 1
         assert meta1['step'] == meta0['step'] + 1
         assert all(np.isfinite(hist['train_loss'] + hist['val_loss']))
-        assert warps == 1 and hist['warp_launches'] == [1]
+        assert warps == 1 and hist['kernel_launches']['warp'] == [1]
         assert e1['updates'] == e0['updates'] + 1 and ema_same
         # the second resume's checkpoint holds a shadow apart from its
         # weights, so a shadow re-drawn from the weights would fail above
@@ -2442,7 +2436,7 @@ def cache_path(card, tmp):
     from unet_tpu_torch.cli import train as train_cli
     from unet_tpu_torch.data.cache import CachedSliceDataset, build_cache
     from unet_tpu_torch.data.dataset import BatchLoader, SliceDataset
-    from unet_tpu_torch.ops import warp
+    from unet_tpu_torch.ops._build import launches as counted
     root, blob = f'{tmp}/pngs', f'{tmp}/slices.bin'
     t0 = time.perf_counter()
     n = write_pngs(root, *CACHE_DATA)
@@ -2482,9 +2476,9 @@ def cache_path(card, tmp):
             '2', '--name', 'cached', '--cache', blob]
     if DEVICE == 'cpu':
         argv += ['--device', 'cpu']
-    warp.launch_count = 0
+    counted['warp'] = 0
     hist = train_cli.main(argv)
-    launches = warp.launch_count
+    launches = counted['warp']
     assert launches == TRAIN_SUPERBATCHES, launches
     assert all(np.isfinite(hist['train_loss'] + hist['val_loss']))
     n_train = len(CachedSliceDataset(blob, split='train'))
@@ -2610,7 +2604,7 @@ def dist_worker(argv):
     import torch
     from unet_tpu_torch.cli import train as train_cli
     from unet_tpu_torch.core.distributed import init_distributed
-    from unet_tpu_torch.ops import warp
+    from unet_tpu_torch.ops._build import launches as counted
     DEVICE, TRAIN_CONFIG, coordinator, rank, world, tmp = argv
     rank, world = int(rank), int(world)
     torch.backends.cudnn.allow_tf32 = False
@@ -2631,10 +2625,10 @@ def dist_worker(argv):
             str(rank)]
     if DEVICE == 'cpu':
         argv += ['--device', 'cpu']
-    warp.launch_count = 0
+    counted['warp'] = 0
     hist = train_cli.main(argv)
-    out['warp_launches'] = warp.launch_count
-    out['cli_warp_launches'] = hist['warp_launches']
+    out['warp_launches'] = counted['warp']
+    out['cli_warp_launches'] = hist['kernel_launches']['warp']
     out['train_seconds'] = hist['train_seconds']
     out['train_loss'], out['val_loss'] = hist['train_loss'], hist['val_loss']
     out['save_dir'] = hist['save_dir']
@@ -2803,9 +2797,9 @@ def nccl_path(card, tmp, blob, single, gpus):
     backend = 'nccl' if DEVICE == 'cuda' else 'gloo'
     line = [l for l in lines if l.startswith('Data parallel')]
     assert line == [f'Data parallel: {n} ranks, {backend} backend'], line
-    prefix = 'Warp kernel launches per rank: '
+    prefix = 'Kernel launches per rank: '
     launches = json.loads([l for l in lines
-                           if l.startswith(prefix)][-1][len(prefix):])
+                           if l.startswith(prefix)][-1][len(prefix):])['warp']
     hist = json.loads(open(f'{tmp}/nccl/run/history.json').read())
     drift = weight_drift(tmp, single, f'{tmp}/nccl/run')
     d_val = abs(hist['val_loss'][-1] - single['val_loss'][-1])
@@ -2918,7 +2912,8 @@ def time_launch_host(card):
     g, gx, wg, wx, badd, wpsi, bpsi = gate
     gy = torch.empty_like(gx)
     stream = torch.cuda.current_stream().cuda_stream
-    conv_c, gate_c = cv._lib().conv3x3_launch, ag._lib().attention_gate_launch
+    conv_c = cv.KERNELS.lib.conv3x3_launch
+    gate_c = ag.KERNELS.lib.attention_gate_launch
     calls = {
         'conv3x3 wrapper': lambda: cv.conv3x3(x, k),
         'conv3x3 C launch (3 maps)': lambda: conv_c(
@@ -2954,7 +2949,8 @@ def time_warp(card, err):
     from unet_tpu_torch.ops import warp
     img, msk, cases = warp_cases()
     rows, cols = cases['augment']
-    bound, by, nbytes = warp_bound(SUPER, IMG, IMG)
+    seconds, nbytes = yardstick.warp_bound(SUPER, IMG, IMG)
+    bound = seconds * 1e3   # ms; its bytes bound the warp
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEVICE)
     args = (img, msk, rows, cols)
     k1 = time_ms(lambda: warp.grid_sample_fused(*args), 20, flush)
@@ -2963,9 +2959,9 @@ def time_warp(card, err):
     ms = (k1 + k2) / 2
     log(f'TIME warp {SUPER}x{IMG}^2 (augmentation coords): kernel '
         f'{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} ms, bound {bound:.4f} ms '
-        f'({by}; {nbytes / 1e6:.1f} MB), roofline share {bound / ms:.1%}  '
+        f'(bytes; {nbytes / 1e6:.1f} MB), roofline share {bound / ms:.1%}  '
         f'[{card}]')
-    return {'ms': ms, 'plain_ms': p1, 'bound_ms': bound, 'bound_by': by,
+    return {'ms': ms, 'plain_ms': p1, 'bound_ms': bound, 'bound_by': 'bytes',
             'max_abs_err': err}
 
 
@@ -3012,6 +3008,7 @@ def time_batch_norm(card):
     import torch
     import torch.nn.functional as F
     from unet_tpu_torch.ops import batch_norm as bn
+    from unet_tpu_torch.ops._build import launches as counted
     cl = torch.channels_last
     out = {}
     for kind in ('attention_unet', 'unet'):
@@ -3060,9 +3057,9 @@ def time_batch_norm(card):
                     y = torch.relu(y)
                 torch.autograd.grad(y, (a['x'], a['w'], a['b']), a['dy'])
 
-        before = bn.launch_count
+        before = counted['batch_norm']
         got = through(False)()
-        launches = bn.launch_count - before
+        launches = counted['batch_norm'] - before
         assert launches == len(calls) * bn.LAUNCHES_PER_CALL, (launches,
                                                                 len(calls))
         want = through(True)()
@@ -3212,11 +3209,12 @@ def transunet_train_path(card, tmp):
         argv += ['--device', 'cpu']
         want = 0
     from unet_tpu_torch.cli import train as train_cli
-    group_norm.launch_count = 0
+    from unet_tpu_torch.ops._build import launches as counted
+    counted['group_norm'] = 0
     t0 = time.perf_counter()
     hist = train_cli.main(argv)
     wall = time.perf_counter() - t0
-    launches = group_norm.launch_count
+    launches = counted['group_norm']
     plotted = os.path.exists(f'{hist["save_dir"]}/val_predictions.png')
     log(f'train transunet: {TRANSUNET} (published widths, bf16, '
         f'b{data["batch_size"]} x accum {accum}, {n_train} train / {n_val} '
@@ -3227,7 +3225,8 @@ def transunet_train_path(card, tmp):
         + (f' + {calls} x 3 for the prediction plot' if plotted else '')
         + f'); train loss {hist["train_loss"]}, val loss '
         f'{hist["val_loss"]}  [{card}]')
-    assert hist['gn_launches'] == [want], (hist['gn_launches'], want)
+    counts = hist['kernel_launches']
+    assert counts['group_norm'] == [want], (counts, want)
     if DEVICE == 'cuda':
         assert launches == want + calls * 3 * plotted, (launches, want)
     assert all(np.isfinite(hist['train_loss'] + hist['val_loss']))
@@ -3247,6 +3246,7 @@ def time_group_norm(card):
     import torch.nn.functional as F
     from bench_h100.tracing import function_name
     from unet_tpu_torch.ops import group_norm as gn
+    from unet_tpu_torch.ops._build import launches as counted
     cl = torch.channels_last
     calls = gn_calls()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -3289,9 +3289,9 @@ def time_group_norm(card):
                 y = torch.relu(y)
             torch.autograd.grad(y, (a['x'], a['w'], a['b']), a['dy'])
 
-    gn.launch_count = 0
+    counted['group_norm'] = 0
     got = through(False)()
-    launches = gn.launch_count
+    launches = counted['group_norm']
     assert launches == len(calls) * gn.LAUNCHES_PER_CALL, (launches,
                                                             len(calls))
     want = through(True)()
@@ -3730,7 +3730,7 @@ def gate_ab(parent):
     card = card_line()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = {'change': _build.load('attention_gate')}
+    libs = {'change': ag.KERNELS.lib}
     with tempfile.TemporaryDirectory() as tmp:
         so = f'{tmp}/libattention_gate.so'
         src = f'{parent}/unet_tpu_torch/csrc/attention_gate.cu'
@@ -3738,8 +3738,12 @@ def gate_ab(parent):
                        check=True, capture_output=True, text=True)
         libs['parent'] = ctypes.CDLL(so)
 
+    bound = ['change']
+
     def run(which, *args):
-        _build._libs['attention_gate'] = libs[which]
+        if bound[0] != which:   # bind outside the timed launches
+            ag.KERNELS.bind(libs[which])
+            bound[0] = which
         return ag.attention_gate_fused(*args)
 
     cl = torch.channels_last
@@ -3782,7 +3786,7 @@ def gate_ab(parent):
         for w in ('parent', 'change', 'change', 'parent'):
             t[w] += time_ms(lambda: run(w, *args), 10) / 2
         times.append(t)
-    _build._libs['attention_gate'] = libs['change']
+    ag.KERNELS.bind(libs['change'])
     log(f'gate ab: {compared} launches compared (float32 and bfloat16, '
         f'{len(cases)} shapes and band sets each), {differ} differ from the '
         f'parent\'s kernel; bf16 ms at GATES_T, parent / change: '

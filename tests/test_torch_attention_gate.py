@@ -13,6 +13,7 @@ import torch
 
 from unet_tpu.ops.pallas import attention_gate as jgate
 from unet_tpu_torch.ops import attention_gate as gate
+from unet_tpu_torch.ops._build import launches
 
 torch.set_num_threads(2)
 
@@ -93,13 +94,13 @@ def test_fused_shapes_supported_matches_jax():
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_wrapper_on_cpu_takes_plain_path(dtype, rng, monkeypatch):
     """CPU tensors go to the plain version and launch nothing."""
-    monkeypatch.setattr(gate, 'launch_count', 0)
+    monkeypatch.setitem(launches, 'attention_gate', 0)
     args = _torch_args(_case(rng, *CASES[0]), dtype)
     got = gate.attention_gate_fused(*args)
     want = gate.attention_gate_reference(*args)
     assert got.dtype == dtype and got.shape == args[1].shape
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert gate.launch_count == 0
+    assert launches['attention_gate'] == 0
 
 
 def test_wrapper_refuses_devices_without_a_kernel(rng):

@@ -28,6 +28,7 @@ import torch
 from unet_tpu_torch.models.layers import (AttentionGate, DoubleConv,
                                           TorchBatchNorm)
 from unet_tpu_torch.ops import batch_norm as bn_ops
+from unet_tpu_torch.ops._build import launches
 from unet_tpu_torch.ops.batch_norm import (BatchNormTrain, PlainPasses,
                                            batch_norm_train,
                                            check_kernel_args)
@@ -462,10 +463,10 @@ def test_train_step_launches_every_batch_norm(card, kind):
                            create_optimizer(model, 1e-3), accum_steps=accum)
     imgs = torch.randn(accum, 2, 1, 64, 64, device='cuda')
     msks = (torch.rand(accum, 2, 64, 64, device='cuda') > 0.7).long()
-    before = bn_ops.launch_count
+    before = launches['batch_norm']
     step(imgs, msks, 1e-3, [1] * accum)
     torch.cuda.synchronize()
-    assert (bn_ops.launch_count - before
+    assert (launches['batch_norm'] - before
             == layers * accum * bn_ops.LAUNCHES_PER_CALL)
     assert {18: 'unet', 30: 'attention_unet'}[layers] == kind
     tracked = {int(m.num_batches_tracked) for m in model.modules()
@@ -478,8 +479,8 @@ def test_eval_launches_none(card):
     model = _model('attention_unet').eval()
     x = torch.randn(2, 1, 64, 64, device='cuda').to(
         torch.bfloat16).contiguous(memory_format=CL)
-    before = bn_ops.launch_count
+    before = launches['batch_norm']
     with torch.no_grad():
         model(x)
     torch.cuda.synchronize()
-    assert bn_ops.launch_count == before
+    assert launches['batch_norm'] == before

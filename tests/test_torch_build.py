@@ -3,8 +3,11 @@ replaced by a stub script: ``unet_tpu_torch/ops/_build.py`` compiles
 ``csrc/<name>.cu`` when its library is missing or older than the source
 or than any shared header ``csrc/*.cuh``, keeps the compiler's report,
 and on a failing compiler raises with its output and leaves no library.
+Then the launch seam, ``_build.Kernels``, with a fake library in place of
+a CDLL: error codes, the tally of launches, binding once.
 """
 
+import ctypes
 import os
 import stat
 import time
@@ -169,3 +172,84 @@ def test_tensor_core_kernels_share_the_hopper_header(name):
     assert '#include "hopper.cuh"' in text
     for needle in ('wgmma_k16', 'tma_load_4d', 'mbar_wait'):
         assert needle in text, needle
+
+
+class FakeFunction:
+    """Stands in for a ctypes function: takes argtypes and restype, and
+    records its calls."""
+
+    def __init__(self, body):
+        self.body, self.calls = body, 0
+        self.argtypes = self.restype = None
+
+    def __call__(self, *args):
+        self.calls += 1
+        return self.body(*args)
+
+
+class FakeLibrary:
+    """Stands in for a CDLL: ``fake_launch(code)`` returns ``code``,
+    ``fake_error_string`` the message of a code, ``fake_limit()`` 256;
+    ``looked_up`` counts each name's lookups."""
+
+    def __init__(self):
+        self.looked_up = {}
+        self.functions = {
+            'fake_launch': FakeFunction(lambda code: code),
+            'fake_error_string': FakeFunction(
+                lambda code: f'fake error {code}'.encode()),
+            'fake_limit': FakeFunction(lambda: 256)}
+
+    def __getattr__(self, name):
+        if name not in self.__dict__.get('functions', {}):
+            raise AttributeError(name)
+        self.looked_up[name] = self.looked_up.get(name, 0) + 1
+        return self.functions[name]
+
+
+@pytest.fixture
+def fake(monkeypatch):
+    """A ``Kernels`` of the library 'fake' (two kernels a launch, one
+    query), its tally entry removed again afterwards."""
+    monkeypatch.setitem(_build.launches, 'fake', 0)
+    return _build.Kernels('fake', 'fake_error_string', {
+        'fake_launch': ([ctypes.c_int], 2), 'fake_limit': ([], 0)})
+
+
+def test_nonzero_return_raises_with_the_librarys_message(fake):
+    fake.bind(FakeLibrary())
+    others = {k: v for k, v in _build.launches.items() if k != 'fake'}
+    with pytest.raises(RuntimeError,
+                       match='^fake kernel launch failed: fake error 7$'):
+        fake.fake_launch(7)
+    assert _build.launches['fake'] == 0
+    assert {k: v for k, v in _build.launches.items() if k != 'fake'} == others
+
+
+def test_zero_return_counts_under_the_librarys_name(fake):
+    fake.bind(FakeLibrary())
+    others = {k: v for k, v in _build.launches.items() if k != 'fake'}
+    assert fake.fake_launch(0) is None
+    fake.fake_launch(0)
+    assert _build.launches['fake'] == 4
+    assert {k: v for k, v in _build.launches.items() if k != 'fake'} == others
+
+
+def test_loading_binds_signatures_once(fake, monkeypatch):
+    """The first use loads the library and binds every function with its
+    signature, reading the query; later uses touch neither."""
+    lib, loads = FakeLibrary(), []
+    monkeypatch.setattr(_build, 'load',
+                        lambda name: loads.append(name) or lib)
+    for _ in range(3):
+        fake.fake_launch(0)
+    assert fake.fake_limit == 256 and fake.lib is lib
+    assert loads == ['fake']
+    assert lib.looked_up == {'fake_error_string': 1, 'fake_launch': 1,
+                             'fake_limit': 1}
+    fns = lib.functions
+    assert fns['fake_launch'].argtypes == [ctypes.c_int]
+    assert fns['fake_limit'].argtypes == [] and fns['fake_limit'].calls == 1
+    assert fns['fake_error_string'].argtypes == [ctypes.c_int]
+    assert fns['fake_error_string'].restype is ctypes.c_char_p
+    assert fns['fake_launch'].calls == 3 and _build.launches['fake'] == 6

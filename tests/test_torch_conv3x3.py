@@ -19,6 +19,7 @@ import torch
 
 from unet_tpu.ops.pallas import conv3x3 as jconv
 from unet_tpu_torch.ops import conv3x3 as conv
+from unet_tpu_torch.ops._build import launches
 
 torch.set_num_threads(2)
 
@@ -209,7 +210,7 @@ def test_plain_matches_library_conv_where_jax_refuses(n, s, ci, co, dtype,
 def test_wrapper_on_cpu_takes_plain_path(dtype, rng, monkeypatch):
     """CPU tensors go to the plain version and launch nothing, forward
     and backward alike."""
-    monkeypatch.setattr(conv, 'launch_count', 0)
+    monkeypatch.setitem(launches, 'conv3x3', 0)
     x, k = _inputs(rng, 1, 6, 10, 64, 128)
     xt = _nchw(x, dtype).requires_grad_(True)
     kt = torch.from_numpy(k).requires_grad_(True)
@@ -222,7 +223,7 @@ def test_wrapper_on_cpu_takes_plain_path(dtype, rng, monkeypatch):
         conv.conv3x3_bn_relu(xt.detach(), kt.detach(), mul, add),
         conv.conv3x3_plain(xt.detach(), kt.detach(), mul, add, True),
         rtol=0, atol=0)
-    assert conv.launch_count == 0
+    assert launches['conv3x3'] == 0
 
 
 def test_wrapper_refuses_devices_without_a_kernel(rng):

@@ -575,8 +575,9 @@ def test_two_process_cli_matches_one_process(cli_runs):
     want = cli_runs['single']
     got = cli_runs['two_history']
     assert 'Data parallel: 2 ranks, gloo backend' in cli_runs['outs'][0]
-    assert 'Warp kernel launches per rank: [0, 0]' in cli_runs['outs'][0]
-    assert want['warp_launches'] == [0]
+    assert ('Kernel launches per rank: {"attention_gate": [0, 0], "warp": '
+            '[0, 0],' in cli_runs['outs'][0])
+    assert want['kernel_launches']['warp'] == [0]
     assert got['lr'] == want['lr']
     for k in ('train_loss', 'val_loss'):
         np.testing.assert_allclose(got[k][0], want[k][0], rtol=1e-4,
@@ -618,7 +619,7 @@ def test_two_process_resume_auto_continues(cli_runs):
 def test_local_ranks_spawned_from_data_parallel(cli_runs, tmp_path):
     """``tpu.data_parallel: 2`` on one command spawns two local ranks,
     which train as the two processes did; ``main`` returns local rank
-    0's result, each rank's warp launches among it."""
+    0's result, each rank's kernel launches among it."""
     cfg = _config(tmp_path, 'dp2', data_parallel=2)
     code = ('import json, sys; from unet_tpu_torch.cli import train; '
             'print("RESULT " + json.dumps(train.main(sys.argv[1:])))')
@@ -629,11 +630,12 @@ def test_local_ranks_spawned_from_data_parallel(cli_runs, tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert 'Data parallel: 2 ranks, gloo backend' in proc.stdout
     # the CPU takes the warp's plain version: no kernel launches
-    assert 'Warp kernel launches per rank: [0, 0]' in proc.stdout
+    assert ('Kernel launches per rank: {"attention_gate": [0, 0], "warp": '
+            '[0, 0],' in proc.stdout)
     run = tmp_path / 'runs' / 'run'
     assert _history(run) == cli_runs['two_history']
     result = json.loads([line for line in proc.stdout.splitlines()
                          if line.startswith('RESULT ')][-1][7:])
     assert result['save_dir'] == str(run)
-    assert result['warp_launches'] == [0, 0]
+    assert result['kernel_launches']['warp'] == [0, 0]
     assert result['train_loss'] == cli_runs['two_history']['train_loss']

@@ -21,12 +21,6 @@ MODEL_GATES = [(512, 32, 32, 512, 256), (256, 64, 64, 256, 128),
                (128, 24, 40, 128, 64)]
 
 
-@pytest.fixture
-def no_card(monkeypatch):
-    """``_check`` compares x's device index with the current device."""
-    monkeypatch.setattr(torch.cuda, 'current_device', lambda: None)
-
-
 def _args(cg, h, w, cx, inter, dtype, h_out=None, w_out=None):
     cl = torch.channels_last
     h_out = 2 * h if h_out is None else h_out
@@ -40,13 +34,13 @@ def _args(cg, h, w, cx, inter, dtype, h_out=None, w_out=None):
 
 
 @pytest.mark.parametrize('cg,h,w,cx,inter', MODEL_GATES)
-def test_model_gates_are_taken(cg, h, w, cx, inter, no_card):
+def test_model_gates_are_taken(cg, h, w, cx, inter):
     args = _args(cg, h, w, cx, inter, torch.bfloat16)
     assert gate.fused_shapes_supported(args[0].shape, args[1].shape)
     gate._check(*args)
 
 
-def test_everything_the_guard_admits_is_taken(no_card):
+def test_everything_the_guard_admits_is_taken():
     n = 0
     for h in range(8, 41, 8):
         for w in range(8, 41, 8):
@@ -65,7 +59,7 @@ def test_everything_the_guard_admits_is_taken(no_card):
     (32, 16),   # 2x along H only
     (64, 64),   # 4x
 ])
-def test_other_shapes_are_refused(h_out, w_out, no_card):
+def test_other_shapes_are_refused(h_out, w_out):
     args = _args(64, 16, 16, 64, 32, torch.bfloat16, h_out, w_out)
     assert not gate.fused_shapes_supported(args[0].shape, args[1].shape)
     with pytest.raises(ValueError, match='exactly 2x'):
@@ -73,7 +67,7 @@ def test_other_shapes_are_refused(h_out, w_out, no_card):
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
-def test_check_takes_unaligned_channels(dtype, no_card):
+def test_check_takes_unaligned_channels(dtype):
     """A base-4 model's narrowest gate has Cg = Cx = 4 and I = 2: both
     kernels take it (the bfloat16 one on padded operands)."""
     gate._check(*_args(4, 16, 16, 4, 2, dtype))
@@ -84,7 +78,7 @@ def test_check_takes_unaligned_channels(dtype, no_card):
     (8, 8, 4),          # base 8: I is padded to 8 before the launch
     (1024, 1024, 512),  # base 128: I is walked in two chunks of 256
 ])
-def test_check_takes_aligned_gates_in_bf16(cg, cx, inter, no_card):
+def test_check_takes_aligned_gates_in_bf16(cg, cx, inter):
     gate._check(*_args(cg, 16, 16, cx, inter, torch.bfloat16))
 
 

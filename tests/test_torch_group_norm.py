@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from unet_tpu_torch.models import TRANSUNET, create_model_from_config
 from unet_tpu_torch.models import transunet as tu
 from unet_tpu_torch.ops import group_norm as gn_ops
+from unet_tpu_torch.ops._build import launches
 from unet_tpu_torch.ops.group_norm import (GroupNormFn, PlainPasses,
                                            check_kernel_args)
 
@@ -145,7 +146,7 @@ def test_cpu_tensor_keeps_the_eager_path(monkeypatch):
         raise AssertionError('a CPU tensor reached group_norm')
 
     monkeypatch.setattr(tu, 'group_norm', refuse)
-    before = gn_ops.launch_count
+    before = launches['group_norm']
     case = _case(16, 5, 7, seed=3, dtype=torch.float32)
     for relu in (False, True):
         m = tu.GroupNorm(8, 16, eps=1e-6, relu=relu)
@@ -158,7 +159,7 @@ def test_cpu_tensor_keeps_the_eager_path(monkeypatch):
             want = torch.relu(want)
         torch.testing.assert_close(y, want, rtol=0, atol=0)
         assert y.is_contiguous(memory_format=CL)
-    assert gn_ops.launch_count == before
+    assert launches['group_norm'] == before
 
 
 @pytest.mark.parametrize('what', ['float16', 'float64', 'nchw', '3d', 'cpu',
@@ -498,11 +499,11 @@ def test_train_step_launches_every_group_norm_without_layout_copies(
                            create_optimizer(model, 1e-3), accum_steps=accum)
     imgs = torch.randn(accum, 2, 1, 128, 128, device='cuda')
     msks = (torch.rand(accum, 2, 128, 128, device='cuda') > 0.7).long()
-    before = gn_ops.launch_count
+    before = launches['group_norm']
     loss = step(imgs, msks, 1e-3, [1] * accum)
     torch.cuda.synchronize()
     assert torch.isfinite(torch.as_tensor(loss))
-    assert (gn_ops.launch_count - before
+    assert (launches['group_norm'] - before
             == 52 * gn_ops.LAUNCHES_PER_CALL * accum)
     assert len(layouts) == 52 * accum and all(layouts)
 
@@ -580,8 +581,8 @@ def test_every_encoder_call_matches_float64(card, monkeypatch):
             bad = err > 1e-5 * float(truth[k].abs().max()) + room[k]
             assert not bad.any(), (i, k, float(err.max()))
     model.eval()
-    before = gn_ops.launch_count
+    before = launches['group_norm']
     with torch.no_grad():
         model(x[:, :1])
     torch.cuda.synchronize()
-    assert gn_ops.launch_count - before == 52 * 3
+    assert launches['group_norm'] - before == 52 * 3

@@ -109,7 +109,7 @@ def _argv(setup, out, *extra):
 @pytest.fixture(scope='module')
 def outputs(setup):
     from unet_tpu.cli.predict import main as jax_main
-    from unet_tpu_torch.ops import attention_gate
+    from unet_tpu_torch.ops._build import launches
     from unet_tpu_torch.cli.predict import main as port_main
 
     jax_out, port_out = setup['tmp'] / 'jax', setup['tmp'] / 'port'
@@ -119,9 +119,9 @@ def outputs(setup):
         jax_main()
     finally:
         sys.argv = old
-    before = attention_gate.launch_count
+    before = launches['attention_gate']
     summary = port_main(_argv(setup, port_out, '--device', 'cpu'))
-    assert attention_gate.launch_count == before  # CPU: no kernel launch
+    assert launches['attention_gate'] == before  # CPU: no kernel launch
     return jax_out, port_out, summary
 
 
@@ -252,3 +252,36 @@ def test_background_iter_passes_producer_errors_on():
 
     with pytest.raises(KeyError):
         list(background_iter(gen()))
+
+
+def test_any_compute_dtype_but_bfloat16_loads_as_float32(tmp_path):
+    """A checkpoint whose config names a compute dtype other than bfloat16
+    (here float16) loads in both packages, as the JAX package's rule
+    reads it: a float32 model, whose forward the port's equals."""
+    import jax.numpy as jnp
+    from unet_tpu.cli.predict import load_model as jax_load
+    from unet_tpu_torch.cli.predict import load_model
+    from unet_tpu_torch.models import create_model
+
+    cfg = {'model': {'type': 'unet', 'n_channels': 1, 'n_classes': 2,
+                     'bilinear': True, 'base_features': 4,
+                     'deep_supervision': False},
+           'tpu': {'compute_dtype': 'float16'}}
+    model = create_model('unet', base_features=4,
+                         generator=torch.Generator().manual_seed(0))
+    pt = tmp_path / 'model.pt'
+    torch.save({'epoch': 2, 'model_state_dict': model.state_dict(),
+                'optimizer_state_dict': {}, 'metrics': {}, 'config': cfg},
+               pt)
+    jm, variables, _ = jax_load(str(pt))
+    port, meta = load_model(pt, device='cpu')
+    assert jm.dtype == jnp.float32 and port.dtype == torch.float32
+    assert meta['epoch'] == 2
+    x = np.random.default_rng(0).standard_normal(
+        (2, IMG, IMG, 1)).astype(np.float32)
+    want = np.asarray(jm.apply(variables, jnp.asarray(x), train=False))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want,
+                               rtol=2e-2, atol=1e-3)

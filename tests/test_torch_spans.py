@@ -253,4 +253,4 @@ def test_recorder_leaves_losses_and_weights_bit_identical(runs):
     assert a['model_state_dict'].keys() == b['model_state_dict'].keys()
     for k, v in a['model_state_dict'].items():
         assert torch.equal(v, b['model_state_dict'][k]), k
-    assert (plain['warp_launches'] == traced['warp_launches'])
+    assert (plain['kernel_launches'] == traced['kernel_launches'])

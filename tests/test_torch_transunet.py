@@ -34,6 +34,7 @@ from unet_tpu_torch.models import (TRANSUNET, create_model_from_config,
 from unet_tpu_torch.models import transunet as tu
 from unet_tpu_torch.models.layers import TorchBatchNorm
 from unet_tpu_torch.ops import attention as attn_ops
+from unet_tpu_torch.ops._build import launches
 from unet_tpu_torch.utils import profiling
 from unet_tpu_torch.utils.profiling import spans
 
@@ -295,16 +296,16 @@ def test_init_plan_gives_every_leaf_its_published_rule():
 def test_attention_entry_point_is_softmax_qk_v_and_counts():
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(2, 3, 10, 8, generator=g) for _ in range(3))
-    before = attn_ops.call_count
+    before = launches['attention']
     got = attn_ops.attention(q, k, v)
-    assert attn_ops.call_count == before + 1
+    assert launches['attention'] == before + 1
     want = torch.softmax(q @ k.transpose(-1, -2) / 8 ** 0.5, -1) @ v
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
     prog, _ = _pair()
-    before = attn_ops.call_count
+    before = launches['attention']
     with torch.no_grad():
         prog(_x())
-    assert attn_ops.call_count == before + TINY['num_layers']
+    assert launches['attention'] == before + TINY['num_layers']
 
 
 def test_config_validation():
@@ -367,9 +368,10 @@ def test_train_cli_trains_and_counts_attention(run):
     assert np.isfinite(result['train_loss'][0])
     # 2 layers a forward: 2 steps x 2 microbatches, then the validation
     # forward of one batch
-    assert result['attention_calls'] == [2 * (STEPS * ACCUM + 1)]
-    assert result['bn_launches'] == [0]   # the CPU takes no kernel
-    assert result['gn_launches'] == [0]
+    counts = result['kernel_launches']
+    assert counts['attention'] == [2 * (STEPS * ACCUM + 1)]
+    # the CPU takes no kernel
+    assert counts['batch_norm'] == [0] and counts['group_norm'] == [0]
 
 
 def test_model_spans_nest_under_the_step(run):

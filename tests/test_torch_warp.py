@@ -21,6 +21,7 @@ from unet_tpu.data.augmentations import (_grid_sample_bilinear,
                                          _grid_sample_nearest)
 from unet_tpu.ops.pallas.warp import grid_sample_fused_pallas
 from unet_tpu_torch.ops import warp
+from unet_tpu_torch.ops._build import launches
 
 torch.set_num_threads(2)
 
@@ -135,7 +136,7 @@ def test_bilinear_and_nearest_pair_for_multichannel(kind):
 
 
 def test_wrapper_on_cpu_takes_plain_path(monkeypatch):
-    monkeypatch.setattr(warp, 'launch_count', 0)
+    monkeypatch.setitem(launches, 'warp', 0)
     rng, img, msk = _case('wrap')
     rows, cols = _coords('rotation', rng)
     args = (torch.from_numpy(img).permute(0, 3, 1, 2).contiguous(),
@@ -145,7 +146,7 @@ def test_wrapper_on_cpu_takes_plain_path(monkeypatch):
     want = warp.grid_sample_fused_reference(*args)
     assert got[0].dtype == torch.float32 and got[1].dtype == torch.uint8
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert warp.launch_count == 0
+    assert launches['warp'] == 0
 
 
 @pytest.mark.parametrize('breakage,error', [

@@ -86,8 +86,8 @@ Where each part of ``unet_tpu`` lives here:
                                       --process-id, tpu.data_parallel)
   unet_tpu/cli/overfit.py          -> cli/overfit.py
 
-Still to port: the benchmark (bench.py, benchmarks/), which waits for
-a benchmark of the port's own.
+Not ported: the JAX package's benchmark (bench.py, benchmarks/); the
+port's own is bench_h100/ (BENCHMARK.json).
 
 Not ported, because they are TPU lowerings of math ATen/cuDNN already
 do: ops/s2d.py and IncPoolS2D (UNET_TPU_S2D, UNET_TPU_S2D_LEVEL),

@@ -55,9 +55,8 @@ import torch
 
 from unet_tpu_torch import resolve_device
 from unet_tpu_torch.models import TransUNet, create_model_from_config
+from unet_tpu_torch.utils.config import compute_dtype
 from unet_tpu_torch.utils.torch_port import load_torch_checkpoint
-
-_DTYPES = {'bfloat16': torch.bfloat16, 'float32': torch.float32}
 
 
 def load_model(weights, dtype=None, device=None):
@@ -72,10 +71,10 @@ def load_model(weights, dtype=None, device=None):
     ``meta.json``. A directory without ``model.pt`` (the JAX package's
     Orbax checkpoint) is refused: the JAX exporter converts it.
 
-    The config's ``tpu.compute_dtype`` (default bfloat16) sets the
-    compute dtype unless ``dtype`` is given, and ``tpu.fused_attention_gate``
-    routes the eval gates through the fused kernel, as the JAX train
-    CLI's model does."""
+    The config's ``tpu`` section sets the compute dtype unless ``dtype``
+    is given (``utils.config.compute_dtype``), and
+    ``tpu.fused_attention_gate`` routes the eval gates through the fused
+    kernel, as the JAX train CLI's model does."""
     from unet_tpu_torch.train.callbacks import CheckpointManager
 
     path = Path(weights)
@@ -93,7 +92,7 @@ def load_model(weights, dtype=None, device=None):
     state, cfg, epoch = load_torch_checkpoint(path)
     tcfg = cfg.get('tpu', {})
     if dtype is None:
-        dtype = _DTYPES[tcfg.get('compute_dtype', 'bfloat16')]
+        dtype = compute_dtype(tcfg)
     model = create_model_from_config(
         {'img_size': cfg.get('data', {}).get('img_size', 512),
          **cfg.get('model', {})}, dtype, tcfg)

@@ -146,10 +146,10 @@ def main(argv=None):
     """Run the training; returns the epoch history (the dict written to
     ``history.json``) with the run directory under ``'save_dir'``, each
     epoch's train wall time under ``'train_seconds'`` and each rank's
-    warp kernel launches under ``'warp_launches'`` (the BatchNorm
-    kernels' under ``'bn_launches'``). Where this host runs several ranks,
-    they run in spawned processes and local rank 0's result is
-    returned."""
+    kernel launches over the run under ``'kernel_launches'`` (library
+    name -> one count per rank, as ``ops._build.launches`` keys them).
+    Where this host runs several ranks, they run in spawned processes and
+    local rank 0's result is returned."""
     args = parse_args(argv)
 
     from unet_tpu_torch import resolve_device
@@ -219,7 +219,7 @@ def _train(args, config, device, rank, world):
                                              SyntheticSliceDataset,
                                              prefetch_to_device)
     from unet_tpu_torch.models import create_model_from_config
-    from unet_tpu_torch.ops import attention, batch_norm, group_norm, warp
+    from unet_tpu_torch.ops._build import launches
     from unet_tpu_torch.train.callbacks import (CheckpointManager,
                                                 EarlyStopping)
     from unet_tpu_torch.train.losses import create_loss_function
@@ -229,7 +229,8 @@ def _train(args, config, device, rank, world):
                                               ema_reinit, make_eval_step,
                                               make_train_step,
                                               validation_loss)
-    from unet_tpu_torch.utils.config import (describe_devices,
+    from unet_tpu_torch.utils.config import (compute_dtype,
+                                             describe_devices,
                                              get_nested_metric,
                                              increment_path, set_seed,
                                              validate_config)
@@ -240,10 +241,7 @@ def _train(args, config, device, rank, world):
     from unet_tpu_torch.utils.torch_port import load_torch_checkpoint
 
     is_main = rank == 0
-    warp_before = warp.launch_count
-    bn_before = batch_norm.launch_count
-    gn_before = group_norm.launch_count
-    attn_before = attention.call_count
+    launches_before = dict(launches)
     log = print if is_main else (lambda *a, **k: None)
     validate_config(config)
     seed = config.get('seed', 42)
@@ -337,8 +335,7 @@ def _train(args, config, device, rank, world):
     # ---- model ----
     model_cfg = config['model']
     tpu_cfg = config.get('tpu', {})
-    dtype = (torch.bfloat16 if tpu_cfg.get('compute_dtype', 'bfloat16')
-             == 'bfloat16' else torch.float32)
+    dtype = compute_dtype(tpu_cfg)
     deep_supervision = model_cfg.get('deep_supervision', False)
     model = create_model_from_config(
         {'img_size': img_size, **model_cfg}, dtype, tpu_cfg,
@@ -608,23 +605,15 @@ def _train(args, config, device, rank, world):
 
     log('\n' + '=' * 60)
     log('Training complete!')
-    # the augmentation kernel's launches on each rank (0 where the warp
-    # took its plain version: a CPU run, or augmentation off)
-    warp_launches = gather_objects(warp.launch_count - warp_before)
-    log(f'Warp kernel launches per rank: {json.dumps(warp_launches)}')
-    # the train-mode BatchNorm kernels' launches (0 on the CPU)
-    bn_launches = gather_objects(batch_norm.launch_count - bn_before)
-    log(f'BatchNorm kernel launches per rank: {json.dumps(bn_launches)}')
-    # the GroupNorm kernels' launches (TransUNet on CUDA; 0 elsewhere)
-    gn_launches = gather_objects(group_norm.launch_count - gn_before)
-    log(f'GroupNorm kernel launches per rank: {json.dumps(gn_launches)}')
-    # the fused attention's calls, forward (TransUNet; 0 for the U-Nets)
-    attn_calls = gather_objects(attention.call_count - attn_before)
-    log(f'Attention calls per rank: {json.dumps(attn_calls)}')
+    # each library's kernel launches on each rank over the run (0 where
+    # a CPU run or the model took the plain versions)
+    per_rank = gather_objects({k: n - launches_before[k]
+                               for k, n in launches.items()})
+    kernel_launches = {k: [r[k] for r in per_rank] for k in per_rank[0]}
+    log(f'Kernel launches per rank: {json.dumps(kernel_launches)}')
     result = {**history, 'save_dir': str(save_dir),
-              'train_seconds': train_seconds, 'warp_launches': warp_launches,
-              'bn_launches': bn_launches, 'gn_launches': gn_launches,
-              'attention_calls': attn_calls}
+              'train_seconds': train_seconds,
+              'kernel_launches': kernel_launches}
     if not is_main:
         return result
     (save_dir / 'history.json').write_text(

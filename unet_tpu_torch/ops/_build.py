@@ -1,4 +1,4 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build, load and launch the port's hand-written CUDA kernels.
 
 Each ``unet_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into
@@ -8,6 +8,12 @@ build runs at first use, or when the source or any shared header
 ``build_all()`` starts one ``nvcc`` per source at once. Delete
 ``unet_tpu_torch/build/`` to force a rebuild. Nothing here runs at
 import time, so the CPU-only tests import this module freely.
+
+An op module declares its library once as ``Kernels`` (its C functions'
+signatures and the kernels each launches) and calls the functions on
+it: a launch that returns nonzero raises with the library's message,
+one that returns zero adds its kernels to ``launches``, the one tally of
+the process. ``check_device`` is the check every launch makes first.
 """
 
 from __future__ import annotations
@@ -19,7 +25,9 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
@@ -30,6 +38,12 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+# Kernel launches in this process by library name, and the fused
+# attention's calls (``ops/attention.py``) under 'attention'. Read a
+# difference, or set an entry to 0; never rebind the dict, which the
+# bound launch functions hold.
+launches: Dict[str, int] = dict.fromkeys((*SOURCES, 'attention'), 0)
 
 
 def nvcc() -> str:
@@ -99,3 +113,63 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
         return lib
+
+
+class Kernels:
+    """The C functions of the library ``name`` (one of ``SOURCES``, the
+    tally's keys), bound at first use.
+
+    ``functions`` maps each function's name to ``(argtypes, kernels)``.
+    A function of ``kernels`` > 0 launches that many kernels and returns
+    the library's error code: bound, a nonzero code raises
+    ``RuntimeError('<name> kernel launch failed: ' + <error>(code))``,
+    and zero adds ``kernels`` to ``launches[name]``. A function of
+    ``kernels`` 0 is a query of the library's limits: it takes no
+    argument and is read once, at binding, into the attribute of its
+    name. ``error`` names the library's ``const char *(int)`` message
+    function."""
+
+    def __init__(self, name: str, error: str,
+                 functions: Dict[str, Tuple[Sequence, int]]):
+        self.name, self._error, self._functions = name, error, functions
+
+    def __getattr__(self, attr):
+        # only before binding: bind() sets every function's attribute
+        if attr.startswith('_'):
+            raise AttributeError(attr)
+        self.bind(load(self.name))
+        return object.__getattribute__(self, attr)
+
+    def bind(self, lib) -> None:
+        """Bind the functions of ``lib`` (a ``ctypes.CDLL``, or anything
+        with the same attributes), replacing those bound before; the
+        library itself becomes ``self.lib``."""
+        error = getattr(lib, self._error)
+        error.argtypes, error.restype = [ctypes.c_int], ctypes.c_char_p
+        for fn_name, (argtypes, kernels) in self._functions.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = list(argtypes)
+            setattr(self, fn_name,
+                    self._launcher(fn, kernels, error) if kernels else fn())
+        self.lib = lib
+
+    def _launcher(self, fn, kernels: int, error):
+        name, tally = self.name, launches
+
+        def launch(*args) -> None:
+            err = fn(*args)
+            if err:
+                raise RuntimeError(f'{name} kernel launch failed: '
+                                   + error(err).decode())
+            tally[name] += kernels
+        return launch
+
+
+def check_device(op: str, t: torch.Tensor, name: str = 'x') -> None:
+    """Raise unless ``t`` is a CUDA tensor on the current device, whose
+    stream a launch takes; ``op`` starts the message."""
+    if t.device.type != 'cuda':
+        raise ValueError(f'{op}: no kernel for {t.device}')
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(f'{op}: {name} is on {t.device}, the current '
+                         f'device is {torch.cuda.current_device()}')

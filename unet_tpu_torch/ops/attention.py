@@ -9,8 +9,8 @@ slowly, to the math backend, which writes the N x N scores and
 probabilities to device memory. On the CPU it runs the math backend:
 softmax(q k^T / sqrt(d)) v written out.
 
-``call_count`` counts the calls, forward only (the train CLI logs it
-over a run, as it logs the BatchNorm kernels' launches).
+Its calls, forward only, count under ``'attention'`` in the kernels'
+tally, ``_build.launches`` (the train CLI logs it over a run).
 """
 
 from __future__ import annotations
@@ -18,9 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-# calls since the count was last read (a plain integer, as the kernels'
-# launch counts are)
-call_count = 0
+from unet_tpu_torch.ops._build import launches
 
 
 def _backends(device: torch.device):
@@ -36,9 +34,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T / sqrt(d)) v of (B, heads, N, d) tensors, with
     dropout ``dropout_p`` on the probabilities (from torch's own
     generator). Differentiable; on CUDA only through a fused backend."""
-    global call_count
     from torch.nn.attention import sdpa_kernel
     with sdpa_kernel(_backends(q.device)):
         out = F.scaled_dot_product_attention(q, k, v, dropout_p=dropout_p)
-    call_count += 1
+    launches['attention'] += 1
     return out

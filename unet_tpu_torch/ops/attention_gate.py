@@ -35,15 +35,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from unet_tpu_torch.ops import _build
 from unet_tpu_torch.ops.resize import (resize_bilinear_align_corners,
                                        resize_rows_align_corners,
                                        source_rows)
 
-# Kernel launches since the count was last reset (chip_smoke.py resets
-# it before driving the main path and reads it after).
-launch_count = 0
-
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+KERNELS = _build.Kernels('attention_gate', 'attention_gate_error_string', {
+    'attention_gate_launch': ([_I] + [_P] * 8 + [_I] * 12 + [_F, _F, _P],
+                              1)})
 
 
 class GateBand(NamedTuple):
@@ -103,19 +104,6 @@ def attention_gate_reference(g: torch.Tensor, x: torch.Tensor,
         + badd.float().to(dt)[None, :, None, None])
     p = torch.einsum('nihw,io->nohw', t, wpsi.reshape(-1, 1).to(dt))
     return x * torch.sigmoid(p.float() + bpsi).to(dt)
-
-
-def _lib() -> ctypes.CDLL:
-    from unet_tpu_torch.ops import _build
-    lib = _build.load('attention_gate')
-    if lib.attention_gate_launch.argtypes is None:
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.attention_gate_launch.argtypes = (
-            [i32] + [ptr] * 8 + [i32] * 12 + [f32, f32, ptr])
-        lib.attention_gate_launch.restype = ctypes.c_int
-        lib.attention_gate_error_string.argtypes = [i32]
-        lib.attention_gate_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def _align_scale(n_in: int, n_out: int) -> float:
@@ -202,9 +190,6 @@ def _check(g, x, wg, wx, badd, wpsi, bpsi,
         if not t.is_contiguous():
             raise ValueError(f'attention gate kernel: {name} must be '
                              'contiguous')
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(f'attention gate kernel: x is on {x.device}, the '
-                         f'current device is {torch.cuda.current_device()}')
 
 
 def attention_gate_fused(g: torch.Tensor, x: torch.Tensor,
@@ -227,12 +212,10 @@ def attention_gate_fused(g: torch.Tensor, x: torch.Tensor,
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes
     ``attention_gate_reference``.
     """
-    global launch_count
     if x.device.type == 'cpu':
         return attention_gate_reference(g, x, wg, wx, badd, wpsi, bpsi,
                                         band)
-    if x.device.type != 'cuda':
-        raise ValueError(f'attention gate kernel: no kernel for {x.device}')
+    _build.check_device('attention gate kernel', x)
     if not torch.is_tensor(bpsi):
         bpsi = torch.tensor([float(bpsi)], device=x.device)
     if band is None:
@@ -244,8 +227,7 @@ def attention_gate_fused(g: torch.Tensor, x: torch.Tensor,
     n, cg, h_in, w_in = g.shape
     _, _, h_out, w_out = x.shape
     out = torch.empty_like(x, memory_format=torch.channels_last)
-    lib = _lib()
-    err = lib.attention_gate_launch(
+    KERNELS.attention_gate_launch(
         _DTYPES[x.dtype], g.data_ptr(), x.data_ptr(), wg.data_ptr(),
         wx.data_ptr(), badd.data_ptr(), wpsi.data_ptr(), bpsi.data_ptr(),
         out.data_ptr(), n, h_in, w_in, h_out, w_out, cg, x.shape[1],
@@ -253,10 +235,6 @@ def attention_gate_fused(g: torch.Tensor, x: torch.Tensor,
         band.h_out_full, _align_scale(band.h_in_full, band.h_out_full),
         _align_scale(w_in, w_out),
         torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError('attention gate kernel launch failed: '
-                           + lib.attention_gate_error_string(err).decode())
-    launch_count += 1
     if out.shape[1] != cx:
         out = out[:, :cx].contiguous(memory_format=torch.channels_last)
     return out

@@ -35,20 +35,27 @@ import ctypes
 import torch
 
 from unet_tpu_torch.core.distributed import all_reduce_sum_, is_distributed
+from unet_tpu_torch.ops import _build
 
-# Kernel launches since the count was last reset (the train CLI logs it
-# over a run; chip_smoke.py and the chip tests read it).
-launch_count = 0
 # Kernel launches of one call, forward and backward (inside a process
 # group the forward's finalize runs apart, after the all-reduce: one more).
 LAUNCHES_PER_CALL = 6
 
 _CL = torch.channels_last
-_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-
-
-def _acc(x: torch.Tensor) -> torch.dtype:
-    return torch.float64 if x.dtype == torch.float64 else torch.float32
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+# bn_max_row_blocks: a statistics pass writes at most that many x 2 x C
+# partial sums
+KERNELS = _build.Kernels('batch_norm', 'bn_error_string', {
+    'bn_max_row_blocks': ([], 0),
+    'bn_forward_stats': ([_P, _I, _LL, _I, _P, _P, _I, _F, _F, _F]
+                         + [_P] * 5, 2),
+    'bn_forward_finalize': ([_P, _I, _F, _F, _F] + [_P] * 5, 1),
+    'bn_forward_apply': ([_P, _I, _LL, _I, _P, _P, _P, _I, _P, _P], 1),
+    'bn_backward_sums': ([_P, _P, _I, _LL, _I, _P, _P, _P, _I, _P, _P, _P],
+                         2),
+    'bn_backward_input': ([_P, _P, _I, _LL, _I, _P, _P, _P, _I, _P, _P,
+                           _P], 1)})
 
 
 def _per_channel(v: torch.Tensor) -> torch.Tensor:
@@ -61,7 +68,7 @@ class PlainPasses:
 
     @staticmethod
     def stats(x):
-        xf = x.to(_acc(x))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         return torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
                           xf.new_full((1,), x.numel() // x.shape[1])])
 
@@ -120,54 +127,19 @@ class PlainPasses:
         return dx.to(x.dtype)
 
 
-_loaded = None   # (library, its row-block cap), bound at first use
-
-
-def _lib():
-    """The kernels' library (built at first use) and its row-block cap:
-    a statistics pass writes at most cap * 2 * C partial sums."""
-    global _loaded
-    if _loaded is not None:
-        return _loaded
-    from unet_tpu_torch.ops import _build
-    lib = _build.load('batch_norm')
-    if lib.bn_forward_stats.argtypes is None:
-        p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_float)
-        lib.bn_max_row_blocks.argtypes = []
-        lib.bn_forward_stats.argtypes = ([p, i, ll, i, p, p, i, f, f, f]
-                                         + [p] * 5)
-        lib.bn_forward_finalize.argtypes = [p, i, f, f, f] + [p] * 5
-        lib.bn_forward_apply.argtypes = [p, i, ll, i, p, p, p, i, p, p]
-        lib.bn_backward_sums.argtypes = [p, p, i, ll, i, p, p, p, i, p, p, p]
-        lib.bn_backward_input.argtypes = [p, p, i, ll, i, p, p, p, i, p, p,
-                                          p]
-        lib.bn_error_string.argtypes = [i]
-        lib.bn_error_string.restype = ctypes.c_char_p
-    _loaded = lib, lib.bn_max_row_blocks()
-    return _loaded
-
-
 class KernelPasses:
     """The two passes as kernel launches on ``stream`` (a cudaStream_t as
     an int: the forward's, on which autograd also runs the backward);
     the same interface as ``PlainPasses``."""
 
     def __init__(self, stream: int):
-        self.lib, self.row_blocks = _lib()
         self.stream = stream
 
-    def _launched(self, err: int, launches: int) -> None:
-        global launch_count
-        if err:
-            raise RuntimeError('batch_norm kernel launch failed: '
-                               + self.lib.bn_error_string(err).decode())
-        launch_count += launches
-
-    def _scratch(self, x, extra):
+    @staticmethod
+    def _scratch(x, extra):
         """One float32 buffer: a pass's per-block partial sums, then
         ``extra`` floats; returns it and the partials' length."""
-        n = self.row_blocks * 2 * x.shape[1]
+        n = KERNELS.bn_max_row_blocks * 2 * x.shape[1]
         return torch.empty(n + extra, dtype=torch.float32,
                            device=x.device), n
 
@@ -186,10 +158,9 @@ class KernelPasses:
         k = 2 * x.shape[1] + 1
         buf, n = self._scratch(x, k)
         stats = buf[n:]
-        err = self.lib.bn_forward_stats(
+        KERNELS.bn_forward_stats(
             x.data_ptr(), *self._rows(x), buf.data_ptr(), stats.data_ptr(),
             False, 0.0, 0.0, 0.0, None, None, None, None, self.stream)
-        self._launched(err, 2)
         return stats
 
     def stats_finalize(self, x, fin):
@@ -198,26 +169,23 @@ class KernelPasses:
         buf, n = self._scratch(x, k)
         sc = torch.empty(k, dtype=torch.float32, device=x.device)
         ptr = buf.data_ptr()
-        err = self.lib.bn_forward_stats(
+        KERNELS.bn_forward_stats(
             x.data_ptr(), *self._rows(x), ptr, ptr + 4 * n, True,
             *self._fin_args(fin), sc.data_ptr(), self.stream)
-        self._launched(err, 2)
         return sc
 
     def finalize(self, stats, fin):
         sc = torch.empty_like(stats)
-        err = self.lib.bn_forward_finalize(
+        KERNELS.bn_forward_finalize(
             stats.data_ptr(), (stats.numel() - 1) // 2, *self._fin_args(fin),
             sc.data_ptr(), self.stream)
-        self._launched(err, 1)
         return sc
 
     def apply(self, x, sc, weight, bias, relu):
         y = torch.empty_like(x, memory_format=_CL)
-        err = self.lib.bn_forward_apply(
+        KERNELS.bn_forward_apply(
             x.data_ptr(), *self._rows(x), sc.data_ptr(), weight.data_ptr(),
             bias.data_ptr(), relu, y.data_ptr(), self.stream)
-        self._launched(err, 1)
         return y
 
     def grad_sums(self, dy, x, sc, weight, bias, relu):
@@ -225,52 +193,42 @@ class KernelPasses:
         buf, _ = self._scratch(x, 0)
         sums = torch.empty(2 * x.shape[1], dtype=torch.float32,
                            device=x.device)
-        err = self.lib.bn_backward_sums(
+        KERNELS.bn_backward_sums(
             dy.data_ptr(), x.data_ptr(), *self._rows(x), sc.data_ptr(),
             weight.data_ptr(), bias.data_ptr(), relu, buf.data_ptr(),
             sums.data_ptr(), self.stream)
-        self._launched(err, 2)
         return sums
 
     def grad_input(self, dy, x, sc, weight, bias, relu, sums):
         dx = torch.empty_like(x, memory_format=_CL)
-        err = self.lib.bn_backward_input(
+        KERNELS.bn_backward_input(
             dy.data_ptr(), x.data_ptr(), *self._rows(x), sc.data_ptr(),
             weight.data_ptr(), bias.data_ptr(), relu, sums.data_ptr(),
             dx.data_ptr(), self.stream)
-        self._launched(err, 1)
         return dx
 
 
-_passes = {}   # KernelPasses by stream
-
-
-def kernel_passes(stream: int) -> KernelPasses:
-    """The ``KernelPasses`` of ``stream`` (made once a stream)."""
-    ops = _passes.get(stream)
-    if ops is None:
-        ops = _passes[stream] = KernelPasses(stream)
-    return ops
+def check_map(op: str, x: torch.Tensor) -> None:
+    """Raise unless the norm kernels (this module's and ``group_norm``'s)
+    take the map x: bf16 or float32, 4-D, contiguous in channels_last, not
+    empty, on the current CUDA device."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f'{op}: x is {x.dtype}; the kernels take '
+                        'bfloat16 or float32')
+    if x.dim() != 4 or not x.is_contiguous(memory_format=_CL):
+        raise ValueError(f'{op}: x {tuple(x.shape)} must be 4-D and '
+                         'contiguous in torch.channels_last')
+    if x.numel() == 0:
+        raise ValueError(f'{op}: x is empty')
+    _build.check_device(op, x)
 
 
 def check_kernel_args(x, weight, bias, running_mean, running_var,
                       tracked) -> None:
-    """Raise unless the kernels take these tensors: x bf16 or float32,
-    4-D, contiguous in channels_last, on the current CUDA device; the
-    parameters and running statistics float32 vectors of C, the count an
-    int64 scalar, all on x's device."""
-    if x.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f'batch_norm: x is {x.dtype}; the kernels take '
-                        'bfloat16 or float32')
-    if x.dim() != 4 or not x.is_contiguous(memory_format=_CL):
-        raise ValueError(f'batch_norm: x {tuple(x.shape)} must be 4-D and '
-                         'contiguous in torch.channels_last')
-    if x.numel() == 0:
-        raise ValueError('batch_norm: x is empty')
-    if x.device.type != 'cuda' or (x.device.index
-                                   != torch.cuda.current_device()):
-        raise ValueError(f'batch_norm: x is on {x.device}, not the current '
-                         'CUDA device')
+    """Raise unless the kernels take these tensors: x as ``check_map``
+    says; the parameters and running statistics float32 vectors of C, the
+    count an int64 scalar, all on x's device."""
+    check_map('batch_norm', x)
     c = x.shape[1]
     for name, t in (('weight', weight), ('bias', bias),
                     ('running_mean', running_mean),
@@ -324,6 +282,6 @@ def batch_norm_train(x: torch.Tensor, weight: torch.Tensor,
     check_kernel_args(x, weight, bias, running_mean, running_var, tracked)
     return BatchNormTrain.apply(
         x, weight, bias, (running_mean, running_var, tracked, eps, keep),
-        bool(relu), kernel_passes(torch.cuda.current_stream().cuda_stream))
+        bool(relu), KernelPasses(torch.cuda.current_stream().cuda_stream))
 
 

@@ -38,12 +38,13 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-# Kernel launches (forward and data gradient alike) since the count was
-# last reset (chip_smoke.py resets it before driving the path and reads
-# it after).
-launch_count = 0
+from unet_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# one launch a call, forward and data gradient alike
+KERNELS = _build.Kernels('conv3x3', 'conv3x3_error_string', {
+    'conv3x3_launch': ([_I] + [_P] * 5 + [_I] * 6 + [_P], 1)})
 
 
 def fold_bn_scale_shift(scale: torch.Tensor, bias: torch.Tensor,
@@ -112,18 +113,6 @@ def conv3x3_plain(x: torch.Tensor, k: torch.Tensor,
     return acc.to(dt).contiguous(memory_format=torch.channels_last)
 
 
-def _lib() -> ctypes.CDLL:
-    from unet_tpu_torch.ops import _build
-    lib = _build.load('conv3x3')
-    if lib.conv3x3_launch.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.conv3x3_launch.argtypes = [i32] + [ptr] * 5 + [i32] * 6 + [ptr]
-        lib.conv3x3_launch.restype = ctypes.c_int
-        lib.conv3x3_error_string.argtypes = [i32]
-        lib.conv3x3_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _check(x, k, mul, add) -> None:
     if x.dtype not in _DTYPES:
         raise TypeError(f'conv3x3 kernel: unsupported dtype {x.dtype}')
@@ -154,36 +143,26 @@ def _check(x, k, mul, add) -> None:
                              f'{x.device}')
     if x.data_ptr() % 16:
         raise ValueError('conv3x3 kernel: x must be 16-byte aligned')
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(f'conv3x3 kernel: x is on {x.device}, the current '
-                         f'device is {torch.cuda.current_device()}')
 
 
 def _conv(x: torch.Tensor, k: torch.Tensor, mul: Optional[torch.Tensor],
           add: Optional[torch.Tensor], relu: bool) -> torch.Tensor:
     """One launch of the kernel (a CUDA tensor) or the plain version (a
     CPU tensor)."""
-    global launch_count
     if x.device.type == 'cpu':
         return conv3x3_plain(x, k, mul, add, relu)
-    if x.device.type != 'cuda':
-        raise ValueError(f'conv3x3 kernel: no kernel for {x.device}')
+    _build.check_device('conv3x3 kernel', x)
     _check(x, k, mul, add)
     n, cin, h, w = x.shape
     cout = k.shape[3]
     wk = k.to(x.dtype).contiguous()  # (3, 3, Cin, Cout): row tap*Cin + c
     out = torch.empty((n, cout, h, w), dtype=x.dtype, device=x.device,
                       memory_format=torch.channels_last)
-    lib = _lib()
-    err = lib.conv3x3_launch(
+    KERNELS.conv3x3_launch(
         _DTYPES[x.dtype], x.data_ptr(), wk.data_ptr(),
         None if mul is None else mul.data_ptr(),
         None if add is None else add.data_ptr(), out.data_ptr(), n, h, w,
         cin, cout, int(relu), torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError('conv3x3 kernel launch failed: '
-                           + lib.conv3x3_error_string(err).decode())
-    launch_count += 1
     return out
 
 

@@ -34,22 +34,32 @@ two passes in plain PyTorch, in float32 (float64 for float64 inputs), for
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
 
 import torch
 
-# Kernel launches since the count was last reset (the train CLI logs it
-# over a run; chip_smoke.py and the chip tests read it).
-launch_count = 0
+from unet_tpu_torch.ops import _build
+from unet_tpu_torch.ops.batch_norm import check_map
+
 # Kernel launches of one call, forward and backward.
 LAUNCHES_PER_CALL = 6
 
 _CL = torch.channels_last
-_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-
-
-def _acc(x: torch.Tensor) -> torch.dtype:
-    return torch.float64 if x.dtype == torch.float64 else torch.float32
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+# The library's limits, read once: its block cap (a statistics pass
+# writes at most (gn_max_blocks + N) * 2 * C partial sums), the channels
+# a group may hold at most, and the bytes of a load along C (C a multiple
+# of its values, every map aligned to it).
+KERNELS = _build.Kernels('group_norm', 'gn_error_string', {
+    'gn_max_blocks': ([], 0), 'gn_max_group_channels': ([], 0),
+    'gn_vector_bytes': ([], 0),
+    'gn_forward_stats': ([_P, _I, _I, _LL, _I, _I, _F, _P, _P, _P, _P, _P],
+                         2),
+    'gn_forward_apply': ([_P, _I, _I, _LL, _I, _I, _P, _I, _P, _P], 1),
+    'gn_backward_sums': ([_P, _P, _I, _I, _LL, _I, _I, _P, _P, _I, _P, _P,
+                          _P, _P], 2),
+    'gn_backward_input': ([_P, _P, _I, _I, _LL, _I, _I, _P, _P, _P, _I, _P,
+                           _P, _P, _P], 1)})
 
 
 def _unpack(sc, x, groups):
@@ -80,7 +90,7 @@ class PlainPasses:
     def stats_finalize(x, weight, bias, groups, eps):
         n, c, h, w = x.shape
         hw, cpg = h * w, c // groups
-        xf = x.to(_acc(x))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         shift = xf[:, :, :1, :1]
         d = xf - shift
         s1, s2 = d.sum((2, 3)), (d * d).sum((2, 3))
@@ -138,64 +148,18 @@ class PlainPasses:
                 s1.sum(0).to(x.dtype))
 
 
-class Limits(NamedTuple):
-    """What the kernels take, as the library states it."""
-    max_blocks: int
-    max_group_channels: int
-    vector_bytes: int
-
-
-_loaded = None   # (library, its limits), bound at first use
-
-
-def _lib():
-    """The kernels' library (built at first use) and its limits: its block
-    cap (a statistics pass writes at most (cap + N) * 2 * C partial sums),
-    the channels a group may hold at most, and the bytes of a load along C
-    (C a multiple of its values, every map aligned to it)."""
-    global _loaded
-    if _loaded is not None:
-        return _loaded
-    from unet_tpu_torch.ops import _build
-    lib = _build.load('group_norm')
-    if lib.gn_forward_stats.argtypes is None:
-        p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_float)
-        for name in ('gn_max_blocks', 'gn_max_group_channels',
-                     'gn_vector_bytes'):
-            getattr(lib, name).argtypes = []
-        lib.gn_forward_stats.argtypes = [p, i, i, ll, i, i, f, p, p, p, p, p]
-        lib.gn_forward_apply.argtypes = [p, i, i, ll, i, i, p, i, p, p]
-        lib.gn_backward_sums.argtypes = [p, p, i, i, ll, i, i, p, p, i, p, p,
-                                         p, p]
-        lib.gn_backward_input.argtypes = [p, p, i, i, ll, i, i, p, p, p, i, p,
-                                          p, p, p]
-        lib.gn_error_string.argtypes = [i]
-        lib.gn_error_string.restype = ctypes.c_char_p
-    _loaded = lib, Limits(lib.gn_max_blocks(), lib.gn_max_group_channels(),
-                          lib.gn_vector_bytes())
-    return _loaded
-
-
 class KernelPasses:
     """The two passes as kernel launches on ``stream`` (a cudaStream_t as
     an int: the forward's, on which autograd also runs the backward);
     the same interface as ``PlainPasses``."""
 
     def __init__(self, stream: int):
-        self.lib, self.limits = _lib()
         self.stream = stream
 
-    def _launched(self, err: int, launches: int) -> None:
-        global launch_count
-        if err:
-            raise RuntimeError('group_norm kernel launch failed: '
-                               + self.lib.gn_error_string(err).decode())
-        launch_count += launches
-
-    def _partial(self, x):
+    @staticmethod
+    def _partial(x):
         n, c = x.shape[:2]
-        return torch.empty((self.limits.max_blocks + n) * 2 * c,
+        return torch.empty((KERNELS.gn_max_blocks + n) * 2 * c,
                            dtype=torch.float32, device=x.device)
 
     @staticmethod
@@ -207,7 +171,7 @@ class KernelPasses:
         """The backward's dy in x's dtype and layout, copied where autograd
         hands on a view that starts off a load's boundary."""
         dy = PlainPasses.incoming(dy, x)
-        if dy.data_ptr() % self.limits.vector_bytes:
+        if dy.data_ptr() % KERNELS.gn_vector_bytes:
             dy = dy.clone(memory_format=_CL)
         return dy
 
@@ -215,19 +179,17 @@ class KernelPasses:
         n, c = x.shape[:2]
         sc = torch.empty(2 * n * (c + groups), dtype=torch.float32,
                          device=x.device)
-        err = self.lib.gn_forward_stats(
+        KERNELS.gn_forward_stats(
             x.data_ptr(), *self._dims(x, groups), eps, weight.data_ptr(),
             bias.data_ptr(), self._partial(x).data_ptr(), sc.data_ptr(),
             self.stream)
-        self._launched(err, 2)
         return sc
 
     def apply(self, x, sc, groups, relu):
         y = torch.empty_like(x, memory_format=_CL)
-        err = self.lib.gn_forward_apply(
+        KERNELS.gn_forward_apply(
             x.data_ptr(), *self._dims(x, groups), sc.data_ptr(), relu,
             y.data_ptr(), self.stream)
-        self._launched(err, 1)
         return y
 
     def grad_sums(self, dy, x, sc, weight, groups, relu):
@@ -235,63 +197,37 @@ class KernelPasses:
         buf = torch.empty(2 * n * (c + groups), dtype=torch.float32,
                           device=x.device)
         sums, coef = buf.split([2 * n * c, 2 * n * groups])
-        err = self.lib.gn_backward_sums(
+        KERNELS.gn_backward_sums(
             dy.data_ptr(), x.data_ptr(), *self._dims(x, groups),
             sc.data_ptr(), weight.data_ptr(), relu,
             self._partial(x).data_ptr(), sums.data_ptr(), coef.data_ptr(),
             self.stream)
-        self._launched(err, 2)
         return sums, coef
 
     def grad_input(self, dy, x, sc, sums, coef, groups, relu):
         dx = torch.empty_like(x, memory_format=_CL)
         dweight = torch.empty(x.shape[1], dtype=x.dtype, device=x.device)
         dbias = torch.empty_like(dweight)
-        err = self.lib.gn_backward_input(
+        KERNELS.gn_backward_input(
             dy.data_ptr(), x.data_ptr(), *self._dims(x, groups),
             sc.data_ptr(), coef.data_ptr(), sums.data_ptr(), relu,
             dx.data_ptr(), dweight.data_ptr(), dbias.data_ptr(), self.stream)
-        self._launched(err, 1)
         return dx, dweight, dbias
 
 
-_passes = {}   # KernelPasses by stream
-
-
-def kernel_passes(stream: int) -> KernelPasses:
-    """The ``KernelPasses`` of ``stream`` (made once a stream)."""
-    ops = _passes.get(stream)
-    if ops is None:
-        ops = _passes[stream] = KernelPasses(stream)
-    return ops
-
-
 def check_kernel_args(x, groups, weight, bias) -> None:
-    """Raise unless the kernels take these tensors: x bf16 or float32,
-    4-D, contiguous in channels_last, on the current CUDA device, its
-    channels a multiple of a load's values and its data aligned to a load
-    (``Limits.vector_bytes``); groups dividing C into at most
-    ``Limits.max_group_channels`` channels each; weight and bias
-    contiguous vectors of C in x's dtype on x's device."""
-    if x.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f'group_norm: x is {x.dtype}; the kernels take '
-                        'bfloat16 or float32')
-    if x.dim() != 4 or not x.is_contiguous(memory_format=_CL):
-        raise ValueError(f'group_norm: x {tuple(x.shape)} must be 4-D and '
-                         'contiguous in torch.channels_last')
-    if x.numel() == 0:
-        raise ValueError('group_norm: x is empty')
-    if x.device.type != 'cuda' or (x.device.index
-                                   != torch.cuda.current_device()):
-        raise ValueError(f'group_norm: x is on {x.device}, not the current '
-                         'CUDA device')
-    limits = _lib()[1]
-    c, load = x.shape[1], limits.vector_bytes
+    """Raise unless the kernels take these tensors: x as
+    ``batch_norm.check_map`` says, its channels a multiple of a load's
+    values and its data aligned to a load (``gn_vector_bytes``); groups
+    dividing C into at most ``gn_max_group_channels`` channels each;
+    weight and bias contiguous vectors of C in x's dtype on x's device."""
+    check_map('group_norm', x)
+    c, load = x.shape[1], KERNELS.gn_vector_bytes
     if c % (load // x.element_size()) or x.data_ptr() % load:
         raise ValueError(f'group_norm: the kernels load {load} B along C: '
                          f'{c} channels of {x.dtype} must fill whole loads '
                          'and x must start on a load\'s boundary')
-    most = limits.max_group_channels
+    most = KERNELS.gn_max_group_channels
     if groups < 1 or c % groups or c // groups > most:
         raise ValueError(f'group_norm: {groups} groups of {c} channels; '
                          f'the kernels take groups of at most {most} '
@@ -334,4 +270,4 @@ def group_norm(x: torch.Tensor, groups: int, weight: torch.Tensor,
     check_kernel_args(x, groups, weight, bias)
     return GroupNormFn.apply(
         x, weight, bias, int(groups), float(eps), bool(relu),
-        kernel_passes(torch.cuda.current_stream().cuda_stream))
+        KernelPasses(torch.cuda.current_stream().cuda_stream))

@@ -28,9 +28,11 @@ from typing import Tuple
 
 import torch
 
-# Kernel launches since the count was last reset (chip_smoke.py resets
-# it before driving the main path and reads it after).
-launch_count = 0
+from unet_tpu_torch.ops import _build
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+KERNELS = _build.Kernels('warp', 'warp_error_string', {
+    'warp_launch': ([_P] * 6 + [_I] * 3 + [_P], 1)})
 
 
 def _corners(rows: torch.Tensor, cols: torch.Tensor, h: int, w: int):
@@ -122,18 +124,6 @@ def grid_sample_nearest(masks: torch.Tensor, rows: torch.Tensor,
     return torch.where(valid, out, torch.zeros_like(out))
 
 
-def _lib() -> ctypes.CDLL:
-    from unet_tpu_torch.ops import _build
-    lib = _build.load('warp')
-    if lib.warp_launch.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.warp_launch.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
-        lib.warp_launch.restype = ctypes.c_int
-        lib.warp_error_string.argtypes = [i32]
-        lib.warp_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _check(images, masks, rows, cols) -> None:
     if images.dim() != 4 or images.shape[1] != 1:
         raise ValueError(f'warp: images {tuple(images.shape)} must be '
@@ -172,27 +162,17 @@ def grid_sample_fused(images: torch.Tensor, masks: torch.Tensor,
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes
     ``grid_sample_fused_reference``. Any H, W >= 2.
     """
-    global launch_count
     _check(images, masks, rows, cols)
     if images.device.type == 'cpu':
         return grid_sample_fused_reference(images, masks, rows, cols)
-    if images.device.type != 'cuda':
-        raise ValueError(f'warp: no kernel for {images.device}')
-    if images.device.index != torch.cuda.current_device():
-        raise ValueError(f'warp: images are on {images.device}, the current '
-                         f'device is {torch.cuda.current_device()}')
+    _build.check_device('warp', images, 'images')
     images, masks = images.contiguous(), masks.contiguous()
     rows, cols = rows.contiguous(), cols.contiguous()
     n, _, h, w = images.shape
     out_img = torch.empty_like(images)
     out_msk = torch.empty_like(masks)
-    lib = _lib()
-    err = lib.warp_launch(
+    KERNELS.warp_launch(
         images.data_ptr(), masks.data_ptr(), rows.data_ptr(),
         cols.data_ptr(), out_img.data_ptr(), out_msk.data_ptr(), n, h, w,
         torch.cuda.current_stream(images.device).cuda_stream)
-    if err:
-        raise RuntimeError('warp kernel launch failed: '
-                           + lib.warp_error_string(err).decode())
-    launch_count += 1
     return out_img, out_msk

@@ -45,6 +45,14 @@ def set_seed(seed: int = 42) -> None:
     torch.manual_seed(seed)
 
 
+def compute_dtype(tpu_cfg: Dict) -> torch.dtype:
+    """The model's compute dtype from a config's ``tpu`` section, by the
+    JAX package's rule: ``compute_dtype: bfloat16`` (the default) is
+    bfloat16, any other value float32."""
+    return (torch.bfloat16 if tpu_cfg.get('compute_dtype', 'bfloat16')
+            == 'bfloat16' else torch.float32)
+
+
 def describe_devices(device: torch.device) -> str:
     """Human-readable summary of the device a run uses."""
     device = torch.device(device)
