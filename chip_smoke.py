@@ -73,7 +73,9 @@ Phases (any failure raises and exits non-zero, printing no result):
    ``configs/lung_tumor.yaml`` as written (bf16, batch 4 x accumulation
    8, augmentation on) on 20 synthetic volumes for 2 epochs, from random
    weights of a seed, with the warp kernel's launch count read around
-   the run (one per super-batch); every loss finite, the weights moved,
+   the run (one per super-batch) and the resize kernels' (8 calls both
+   ways a microbatch, forward a validation batch); every loss finite,
+   the weights moved,
    and the saved ``weights/last/model.pt`` serves a 512^2 slice through
    ``cli/predict.load_model``; then the same run with augmentation off;
    then the train CLI on the same config with TransUNet R50-ViT-B/16 at
@@ -126,7 +128,9 @@ Phases (any failure raises and exits non-zero, printing no result):
    ms and F.batch_norm + ReLU's (the library yardstick, which the port
    never calls); the same for the GroupNorm (+ReLU) kernels at one
    TransUNet R50-ViT-B/16 microbatch's 52 calls, against F.group_norm
-   with its layout copy back to channels_last.
+   with its layout copy back to channels_last; the same for the resize
+   kernels at one microbatch's U-Net (4) and Attention U-Net (8) calls,
+   forward and backward apart, against F.interpolate and its backward.
 
 The train CLI phases that count launches in this process run on a copy
 of the config with ``tpu.data_parallel: 1``: the config's -1 would spawn
@@ -138,11 +142,12 @@ measured or computed by this run, and the last line is
 ``{"ok": true, "device": {...}}``. Exits 2 when no CUDA device is
 available. Imports nothing of JAX or of the JAX package.
 
-Six measurement modes run instead of the smoke:
+Seven measurement modes run instead of the smoke:
 ``python3 chip_smoke.py --batch-norm`` builds the BatchNorm kernels and
 runs their row of phase 15 alone; ``python3 chip_smoke.py --group-norm``
 the GroupNorm kernels' (TransUNet's 52 calls a b4 512^2 microbatch) and
-the TransUNet train CLI run of phase 10;
+the TransUNet train CLI run of phase 10; ``python3 chip_smoke.py
+--resize`` the resize kernels' and the train CLI run of phase 10;
 ``python3 chip_smoke.py --inference-ab PARENT_DIR PAIRS`` runs the serve
 and predict phases of another checkout (``git archive`` of a parent
 commit, unpacked) and of this one alternately on the same host, one
@@ -1860,18 +1865,25 @@ def spatial_transposed(model, card):
 
 def _nchw_logits(model, x):
     """The model's logits on x with NCHW weights and activations: another
-    set of cuDNN kernels than the channels_last route the port runs."""
+    set of cuDNN kernels than the channels_last route the port runs, and
+    ATen's resize."""
     import copy
     import torch
+    import unet_tpu_torch.models.layers as layers
     import unet_tpu_torch.models.unet as unet_module
-    prepare = unet_module._prepare
+    from unet_tpu_torch.ops.resize import interpolate_align_corners
+    prepare, upsample = unet_module._prepare, layers.upsample2x_align_corners
     unet_module._prepare = lambda t, dtype: t.to(dtype=dtype).contiguous()
+    # the resize kernels take channels_last maps: ATen's resize here
+    layers.upsample2x_align_corners = lambda t: interpolate_align_corners(
+        t, 2 * t.shape[2], 2 * t.shape[3])
     try:
         m = copy.deepcopy(model).to(memory_format=torch.contiguous_format)
         with torch.no_grad():
             return m(x.contiguous())
     finally:
         unet_module._prepare = prepare
+        layers.upsample2x_align_corners = upsample
 
 
 def plain_unet_path(card):
@@ -1983,14 +1995,19 @@ def run_train_cli(tmp, name, config_path, init_pt):
 
 def train_main_path(card, tmp):
     """The training path: the port's train CLI on the flagship config,
-    the warp kernel's and the BatchNorm kernels' launches counted around
-    the run. Runs in ``tmp``; returns (warp launches, BatchNorm launches,
-    the augmentation-on run's directory)."""
+    the warp kernel's, the BatchNorm kernels' and the resize kernels'
+    launches counted around the run (the resizes': each of the
+    Attention U-Net's RESIZE_CALLS both ways in each train microbatch,
+    forward in each validation batch, and a forward's more where the CLI
+    plotted validation predictions after it reported). Runs in ``tmp``;
+    returns (warp launches, BatchNorm launches, the augmentation-on run's
+    directory, resize launches)."""
     import torch
     import yaml
     from unet_tpu_torch.cli.predict import load_model
+    from unet_tpu_torch.data.dataset import SyntheticSliceDataset
     from unet_tpu_torch.models.layers import TorchBatchNorm
-    from unet_tpu_torch.ops import batch_norm
+    from unet_tpu_torch.ops import batch_norm, resize
     from unet_tpu_torch.train.trainer import make_predict_step_u8
     from unet_tpu_torch.utils.config import load_config
     from unet_tpu_torch.ops._build import launches as counted
@@ -2005,22 +2022,44 @@ def train_main_path(card, tmp):
     accum = load_config(config)['train']['accumulation_steps']
     want_bn = (layers * accum * TRAIN_SUPERBATCHES
                * batch_norm.LAUNCHES_PER_CALL if DEVICE == 'cuda' else 0)
-    counted['warp'] = counted['batch_norm'] = 0
+    cfg = load_config(config)
+    data = cfg['data']
+    split = dict(num_volumes=20, slices_per_volume=4,  # as TRAIN_ARGS
+                 img_size=data['img_size'], val_ratio=data['val_ratio'],
+                 seed=cfg['seed'])
+    val_batches = -(-len(SyntheticSliceDataset(split='val', **split))
+                    // data['batch_size'])
+    calls = len(RESIZE_CALLS)
+    want_rs = (calls * resize.LAUNCHES_PER_CALL * accum * TRAIN_SUPERBATCHES
+               + calls * val_batches * 2 if DEVICE == 'cuda' else 0)
+    counted['warp'] = counted['batch_norm'] = counted['resize'] = 0
     t0 = time.perf_counter()
     hist = run_train_cli(tmp, 'aug_on', config, init_pt)
     wall = time.perf_counter() - t0
     launches, bn_launches = counted['warp'], counted['batch_norm']
+    rs_launches = counted['resize']
+    plotted = os.path.exists(f'{hist["save_dir"]}/val_predictions.png')
     log(f'train: {TRAIN_CONFIG} (bf16, b4 x accum {accum}, augmentation '
         f'on) ran in {wall:.1f} s with {launches} warp kernel launches for '
         f'{TRAIN_SUPERBATCHES} super-batches and {bn_launches} BatchNorm '
         f'kernel launches ({layers} layers x {accum} microbatches x '
-        f'{TRAIN_SUPERBATCHES} steps x {batch_norm.LAUNCHES_PER_CALL}); '
-        f'train loss {hist["train_loss"]}, val loss {hist["val_loss"]}')
+        f'{TRAIN_SUPERBATCHES} steps x {batch_norm.LAUNCHES_PER_CALL}) and '
+        f'{rs_launches} resize kernel launches ({calls} calls x '
+        f'{resize.LAUNCHES_PER_CALL} x {accum} microbatches x '
+        f'{TRAIN_SUPERBATCHES} steps + {calls} x {val_batches} validation '
+        f'batches x 2 epochs' + (f' + {calls} for the prediction plot'
+                                 if plotted else '')
+        + f'); train loss {hist["train_loss"]}, val loss '
+        f'{hist["val_loss"]}')
     assert launches == TRAIN_SUPERBATCHES, launches
     counts = hist['kernel_launches']
     assert counts['warp'] == [launches], counts
     assert bn_launches == want_bn, (bn_launches, want_bn)
     assert counts['batch_norm'] == [bn_launches], counts
+    assert counts['resize'] == [want_rs], (counts, want_rs)
+    if DEVICE == 'cuda':
+        assert rs_launches == want_rs + calls * plotted, (rs_launches,
+                                                         want_rs)
     assert all(np.isfinite(hist['train_loss'] + hist['val_loss']))
     last = f'{hist["save_dir"]}/weights/last/model.pt'
     moved, weights = _moved(init, hist['save_dir'])
@@ -2054,7 +2093,7 @@ def train_main_path(card, tmp):
         log(f'TIME train {k}: ' + ', '.join(
             f'epoch {i + 1} {n_train / t:.2f} slices/s ({t:.3f} s)'
             for i, t in enumerate(secs)) + f'  [{card}]')
-    return launches, bn_launches, out['aug_on']['save_dir']
+    return launches, bn_launches, out['aug_on']['save_dir'], rs_launches
 
 
 def resume_path(card, tmp, run_dir):
@@ -3395,6 +3434,168 @@ def group_norm_only():
     return 0
 
 
+# --------------------------------------------------------------- resize
+
+# (C, h) of each 2x resize of one training forward at 512^2, in call order:
+# the decoder's four upsamples (the U-Net's and TransUNet's), each after
+# the Attention U-Net's gate resize of W_g's output at the same step
+RESIZE_DECODER = [(512, 32), (256, 64), (128, 128), (64, 256)]
+RESIZE_GATES = [(256, 32), (128, 64), (64, 128), (32, 256)]
+RESIZE_CALLS = [c for pair in zip(RESIZE_GATES, RESIZE_DECODER)
+                for c in pair]
+
+
+def time_resize(card):
+    """The resize kernels at one b4 512^2 bf16 microbatch's calls, the
+    U-Net's four and the Attention U-Net's eight, forward and backward
+    apart. Each decoder call's dy is the concat's gradient slice, as in
+    the model (pixels 2C apart, offset C); the gates' dy is dense. Held
+    first: launches counted, the forward within one bf16 step of the
+    plain version, dx within its bf16 rounding (2^-8 of its value) plus
+    (terms + 2) float32 roundoffs of the terms' magnitudes of float64 with
+    the same weights.
+    Then device ms (CUDA events, inputs flushed from L2 before each run)
+    of the kernels, the plain version and ATen's F.interpolate with its
+    autograd backward (the library yardstick the port no longer calls;
+    its backward copies the slice first) beside the bytes bound: each
+    input value read and each output value written once, each way. Then
+    each call alone, and the backward of the 64-channel 256^2 call
+    repeated bit for bit."""
+    import torch
+    import torch.nn.functional as F
+    from unet_tpu_torch.ops import resize
+    from unet_tpu_torch.ops._build import launches as counted
+    cl, dt, n = torch.channels_last, torch.bfloat16, BN_BATCH
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    ops = resize.KernelOps(stream)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=DEVICE, generator=gen).to(
+            dt).contiguous(memory_format=cl)
+    args = []
+    for i, (c, h) in enumerate(RESIZE_CALLS):
+        decoder = i % 2 == 1
+        dy = rnd(n, 2 * c, 2 * h, 2 * h)[:, c:] if decoder else rnd(
+            n, c, 2 * h, 2 * h)
+        args.append(dict(c=c, h=h, x=rnd(n, c, h, h), dy=dy,
+                         decoder=decoder))
+    sets = {'unet': [a for a in args if a['decoder']],
+            'attention_unet': args}
+
+    def forward(run, calls):
+        def fn():
+            with torch.no_grad():
+                return [run(a['x'], 2 * a['h'], 2 * a['h']) for a in calls]
+        return fn
+
+    def backward(run, calls):
+        return lambda: [run(a['dy'], a['h'], a['h']) for a in calls]
+
+    def library_backward(a):
+        return torch.ops.aten.upsample_bilinear2d_backward(
+            a['dy'], [2 * a['h']] * 2, list(a['x'].shape), True)
+    routes = {
+        'kernels': (ops.forward, ops.backward),
+        'plain': (resize.PlainOps.forward, resize.PlainOps.backward),
+        'library': (resize.interpolate_align_corners,
+                    lambda dy, h, w: library_backward(
+                        next(a for a in args if a['dy'] is dy)))}
+    counted['resize'] = 0
+    got_y = forward(resize.resize_bilinear_align_corners, args)()
+    got_dx = backward(ops.backward, args)()
+    sync()
+    assert counted['resize'] == len(args) * resize.LAUNCHES_PER_CALL, \
+        counted['resize']
+    err = 0.0
+    for a, y, dx in zip(args, got_y, got_dx):
+        want = resize.PlainOps.forward(a['x'], 2 * a['h'], 2 * a['h'])
+        assert bool(((y.float() - want.float()).abs()
+                     <= 2.0 ** -7 * want.float().abs()).all()), a['c']
+        h = a['h']
+        wm = torch.from_numpy(resize.gather_matrix(h, 2 * h)).double().to(
+            DEVICE)
+        g = a['dy'].double()
+        truth = torch.einsum('jy,ncyx,kx->ncjk', wm, g, wm)
+        mags = torch.einsum('jy,ncyx,kx->ncjk', wm.abs(), g.abs(),
+                            wm.abs())
+        terms = 2 * max(len(resize.contributors(j, h, 2 * h))
+                        for j in range(h))
+        e = (dx.double() - truth).abs()
+        assert bool((e <= (terms + 2) * 2.0 ** -24 * mags
+                     + 2.0 ** -8 * truth.abs()).all()), a['c']
+        err = max(err, float(e.max()))
+        del want, wm, g, truth, mags, e
+    del got_y, got_dx
+    big = next(a for a in args if a['decoder'] and a['c'] == 64)
+    again = [ops.backward(big['dy'], big['h'], big['h']) for _ in range(2)]
+    repeat = torch.equal(*again)
+    assert repeat
+    del again
+    flush = torch.empty(2 ** 27, dtype=torch.uint8, device=DEVICE)
+    result = {'calls': {}, 'max_abs_err': err, 'backward_repeats': repeat}
+    for name, calls in sets.items():
+        values = sum(n * a['c'] * 5 * a['h'] ** 2 for a in calls)
+        bound = 2 * values / HBM_BYTES_PER_S * 1e3
+        row = {'bound_ms': bound}
+        for route, (fwd, bwd) in routes.items():
+            row[f'{route}_fwd_ms'] = time_ms(forward(fwd, calls), 5, flush)
+            row[f'{route}_bwd_ms'] = time_ms(backward(bwd, calls), 5, flush)
+        row['fwd_share'] = bound / row['kernels_fwd_ms']
+        row['bwd_share'] = bound / row['kernels_bwd_ms']
+        result[name] = row
+        log(f'TIME resize {name} ({len(calls)} calls of one {n}x{IMG}^2 '
+            f'bf16 microbatch, {values / 1e6:.2f} M values each way; device '
+            f'ms, CUDA events, L2 flushed): forward kernels '
+            f'{row["kernels_fwd_ms"]:.4f}, plain {row["plain_fwd_ms"]:.4f}, '
+            f'F.interpolate {row["library_fwd_ms"]:.4f}; backward kernels '
+            f'{row["kernels_bwd_ms"]:.4f}, plain {row["plain_bwd_ms"]:.4f}, '
+            f'upsample_bilinear2d_backward {row["library_bwd_ms"]:.4f}; '
+            f'bound {bound:.4f} each way (bytes, 2 B a value read or '
+            f'written); roofline share forward {row["fwd_share"]:.1%}, '
+            f'backward {row["bwd_share"]:.1%}  [{card}]')
+    for a in args:
+        calls = [a]
+        bound = 2 * n * a['c'] * 5 * a['h'] ** 2 / HBM_BYTES_PER_S * 1e3
+        f_ms = time_ms(forward(ops.forward, calls), 10, flush)
+        b_ms = time_ms(backward(ops.backward, calls), 10, flush)
+        lf = time_ms(forward(routes['library'][0], calls), 10, flush)
+        lb = time_ms(backward(routes['library'][1], calls), 10, flush)
+        kind = 'decoder' if a['decoder'] else 'gate'
+        result['calls'][f'{kind} C{a["c"]} {a["h"]}^2'] = {
+            'fwd_ms': f_ms, 'bwd_ms': b_ms, 'bound_ms': bound,
+            'library_fwd_ms': lf, 'library_bwd_ms': lb}
+        log(f'  {kind} C{a["c"]} {a["h"]}^2 -> {2 * a["h"]}^2: forward '
+            f'{1e3 * f_ms:.1f} us ({bound / f_ms:.1%}), backward '
+            f'{1e3 * b_ms:.1f} us ({bound / b_ms:.1%}) of bound '
+            f'{1e3 * bound:.1f} us; ATen {1e3 * lf:.1f} / {1e3 * lb:.1f} us')
+    del args, flush
+    torch.cuda.empty_cache()
+    return result
+
+
+def resize_only():
+    """``--resize``: build the resize kernels, run their row alone, then
+    the train CLI run of phase 10 with their launches counted."""
+    import torch
+    from unet_tpu_torch.ops import _build
+    if not torch.cuda.is_available():
+        log('no CUDA device')
+        return 2
+    card = card_line()
+    log(f'card: {card}')
+    _build.build('resize')
+    for line in (_build.BUILD / 'resize.log').read_text().splitlines():
+        if 'registers' in line or 'spill' in line or 'error' in line:
+            log(f'  ptxas resize: {line.strip()}')
+    tr = time_resize(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        *_, launches = train_main_path(card, tmp)
+    log(card)
+    log(json.dumps({'resize': dict(tr, launches=launches)}))
+    return 0
+
+
 def time_train_parts(card):
     """The augmentation program per super-batch, and one optimizer step
     (8 microbatches of 4 forward and backward, clip, AdamW) in bf16."""
@@ -3897,7 +4098,7 @@ def main():
     timed('unet', plain_unet_path, card)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        warp_launches, bn_launches, run_dir = timed(
+        warp_launches, bn_launches, run_dir, rs_launches = timed(
             'train', train_main_path, card, tmp)
         torch.cuda.empty_cache()
         gn_launches, gn_steps = timed('train_transunet',
@@ -3918,6 +4119,7 @@ def main():
     tw = timed('time_warp', time_warp, card, warp_err)
     tb = timed('time_batch_norm', time_batch_norm, card)
     tg = timed('time_group_norm', time_group_norm, card)
+    tr = timed('time_resize', time_resize, card)
     timed('time_launch_host', time_launch_host, card)
     timed('time_train_parts', time_train_parts, card)
 
@@ -3990,6 +4192,26 @@ def main():
         # validation)
         'launches': gn_launches,
         'train_steps': gn_steps,
+    }, {
+        'name': 'resize',
+        'route': 'cuda',
+        'source': 'unet_tpu_torch/csrc/resize.cu',
+        # no TPU kernel: the JAX package's resize is gather tables for XLA
+        'replaces': None,
+        # one b4 512^2 microbatch's resizes, the U-Net's four ('unet') and
+        # the Attention U-Net's eight; library_ms is F.interpolate and its
+        # autograd backward, the route the port no longer calls
+        'ms': (tr['attention_unet']['kernels_fwd_ms']
+               + tr['attention_unet']['kernels_bwd_ms']),
+        'plain_ms': (tr['attention_unet']['plain_fwd_ms']
+                     + tr['attention_unet']['plain_bwd_ms']),
+        'library_ms': (tr['attention_unet']['library_fwd_ms']
+                       + tr['attention_unet']['library_bwd_ms']),
+        'bound_ms': 2 * tr['attention_unet']['bound_ms'],
+        'bound_by': 'bytes',
+        **tr,
+        # the train CLI's run above (AttentionUNet-64, the main path)
+        'launches': rs_launches,
     }]
     log('phase seconds (host clock): ' + json.dumps(PHASE_SECONDS))
     log(f'(kernel times: the four 512^2 gates of one bf16 forward at batch '
@@ -4015,6 +4237,8 @@ if __name__ == '__main__':
         sys.exit(batch_norm_only())
     if sys.argv[1:2] == ['--group-norm']:
         sys.exit(group_norm_only())
+    if sys.argv[1:2] == ['--resize']:
+        sys.exit(resize_only())
     if sys.argv[1:2] == ['--gate-ab']:
         sys.exit(gate_ab(sys.argv[2]))
     if sys.argv[1:2] == ['--quality']:

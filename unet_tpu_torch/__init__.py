@@ -9,7 +9,10 @@ which is what the hand-written kernels and cuDNN's bf16 convs want).
 
 Where each part of ``unet_tpu`` lives here:
 
-  unet_tpu/ops/resize.py           -> ops/resize.py (ATen interpolate/pad)
+  unet_tpu/ops/resize.py           -> ops/resize.py (on CUDA the kernel
+                                      pair csrc/resize.cu, forward and
+                                      backward; on the CPU ATen's
+                                      interpolate; pad)
   unet_tpu/ops/pool.py::max_pool   -> ops/pool.py (F.max_pool2d)
   unet_tpu/ops/bitpack.py          -> ops/bitpack.py
   unet_tpu/ops/pallas/attention_gate.py

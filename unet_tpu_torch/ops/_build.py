@@ -32,7 +32,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD = _PKG / 'build'
-SOURCES = ('attention_gate', 'warp', 'conv3x3', 'batch_norm', 'group_norm')
+SOURCES = ('attention_gate', 'warp', 'conv3x3', 'batch_norm', 'group_norm',
+           'resize')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 

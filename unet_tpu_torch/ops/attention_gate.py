@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from unet_tpu_torch.ops import _build
-from unet_tpu_torch.ops.resize import (resize_bilinear_align_corners,
+from unet_tpu_torch.ops.resize import (interpolate_align_corners,
                                        resize_rows_align_corners,
                                        source_rows)
 
@@ -93,7 +93,7 @@ def attention_gate_reference(g: torch.Tensor, x: torch.Tensor,
     with ``band``, the band's rows of the whole map's gate."""
     dt = x.dtype
     if band is None:
-        g_up = resize_bilinear_align_corners(g, x.shape[2], x.shape[3])
+        g_up = interpolate_align_corners(g, x.shape[2], x.shape[3])
     else:
         g_up = resize_rows_align_corners(
             g, band.g_off, band.h_in_full, band.h_out_full, x.shape[3],
